@@ -1,0 +1,168 @@
+"""Weight bridge between the JAX package's parameter tree and the port.
+
+The port's parameters carry the reference torch state_dict's names, so
+`scripts/convert_torch_checkpoint.py:convert_state_dict` maps a port
+state_dict to the JAX tree unchanged. `params_from_jax` is its exact inverse,
+plus the subpixel head, which has no reference name and keeps its own
+(`subpixel_head.res.conv1.weight`, `subpixel_head.proj.weight`, ...):
+
+  Linear  (I, O)          -> (O, I)
+  Conv    (D, H, W, I, O) -> (O, I, D, H, W)
+  ConvT   undo the spatial flip, then (D, H, W, I, O) -> (I, O, D, H, W)
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nerf_mae_torch.config import MAEConfig
+
+# reference buffers that the port computes instead of storing
+_DERIVED = re.compile(r"(^pos_embed$|\.relative_position_index$)")
+
+
+def _lin(w):
+    return np.transpose(w, (1, 0))
+
+
+def _conv(w):
+    return np.transpose(w, (4, 3, 0, 1, 2))
+
+
+def _convT(w):
+    return np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
+
+
+_BLOCK = {
+    "norm1/scale": ("norm1.weight", None), "norm1/bias": ("norm1.bias", None),
+    "norm2/scale": ("norm2.weight", None), "norm2/bias": ("norm2.bias", None),
+    "qkv_kernel": ("attn.qkv.weight", _lin), "qkv_bias": ("attn.qkv.bias", None),
+    "proj_kernel": ("attn.proj.weight", _lin), "proj_bias": ("attn.proj.bias", None),
+    "rel_pos_bias_table": ("attn.relative_position_bias_table", None),
+    "mlp_fc1/kernel": ("mlp.0.weight", _lin), "mlp_fc1/bias": ("mlp.0.bias", None),
+    "mlp_fc2/kernel": ("mlp.3.weight", _lin), "mlp_fc2/bias": ("mlp.3.bias", None),
+}
+_MERGE = {
+    "norm/scale": ("norm.weight", None), "norm/bias": ("norm.bias", None),
+    "reduction/kernel": ("reduction.weight", _lin),
+}
+_TOP = {
+    "patch_embed/kernel": ("patch_partition.0.weight", _conv),
+    "patch_embed/bias": ("patch_partition.0.bias", None),
+    "patch_norm/scale": ("patch_partition.2.weight", None),
+    "patch_norm/bias": ("patch_partition.2.bias", None),
+    "mask_token": ("mask_token", None),
+    "out_head/conv/kernel": ("out.conv.weight", _conv),
+    "out_head/conv/bias": ("out.conv.bias", None),
+}
+
+
+def _decoder_leaf(rest: str, res_prefix: str):
+    """Leaf of an up block or the subpixel head."""
+    if rest == "up/kernel":
+        return "transp_conv.weight", _convT
+    if rest == "up/bias":
+        return "transp_conv.bias", None
+    if rest == "proj/kernel":
+        return "proj.weight", _conv
+    if rest == "proj/bias":
+        return "proj.bias", None
+    m = re.fullmatch(r"res/(conv\d)/(kernel|bias)", rest)
+    if m:
+        leaf = "weight" if m.group(2) == "kernel" else "bias"
+        return f"{res_prefix}.{m.group(1)}.{leaf}", _conv if leaf == "weight" else None
+    raise KeyError(rest)
+
+
+def _map_key(path: str) -> Tuple[str, Optional[Callable]]:
+    if path in _TOP:
+        return _TOP[path]
+    m = re.fullmatch(r"encoder/stage(\d+)_block(\d+)/(.+)", path)
+    if m:
+        s, b = int(m.group(1)), int(m.group(2))
+        name, fn = _BLOCK[m.group(3)]
+        return f"stages.{s}.{b + (1 if s > 0 else 0)}.{name}", fn
+    m = re.fullmatch(r"encoder/merge(\d+)/(.+)", path)
+    if m:
+        name, fn = _MERGE[m.group(2)]
+        return f"stages.{m.group(1)}.0.{name}", fn
+    m = re.fullmatch(r"(decoder\d)/(.+)", path)
+    if m:
+        name, fn = _decoder_leaf(m.group(2), "conv_block")
+        return f"{m.group(1)}.{name}", fn
+    m = re.fullmatch(r"subpixel_head/(.+)", path)
+    if m:
+        name, fn = _decoder_leaf(m.group(1), "res")
+        return f"subpixel_head.{name}", fn
+    raise KeyError(path)
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested flax tree -> {"a/b/c": array}; a flat dict passes through."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, key + "/"))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def expected_keys(cfg: MAEConfig) -> set:
+    """The port's state_dict keys for `cfg` (built on the meta device)."""
+    from nerf_mae_torch.models.mae import SwinMAE3D
+
+    return set(SwinMAE3D(cfg, device="meta").state_dict().keys())
+
+
+def params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig) -> Dict[str, torch.Tensor]:
+    """JAX SwinMAE3D params (nested flax tree or the "/"-joined flat form,
+    with or without a leading "params" level) -> the port's state_dict
+    (CPU float32 tensors). Raises on a missing or unknown parameter."""
+    flat = flatten_tree(tree_or_flat)
+    sd = {}
+    for path, value in flat.items():
+        path = path[len("params/"):] if path.startswith("params/") else path
+        try:
+            name, fn = _map_key(path)
+        except KeyError:
+            raise KeyError(f"unknown JAX parameter {path!r}") from None
+        value = np.asarray(value, np.float32)
+        sd[name] = torch.from_numpy(np.array(fn(value) if fn else value))
+    _check_keys(sd, cfg)
+    return sd
+
+
+def _check_keys(sd: Mapping, cfg: MAEConfig) -> None:
+    want = expected_keys(cfg)
+    missing, extra = want - set(sd), set(sd) - want
+    if missing or extra:
+        raise KeyError(f"state_dict mismatch: missing {sorted(missing)[:8]}, "
+                       f"unexpected {sorted(extra)[:8]}")
+
+
+def load_weights(model, weights) -> None:
+    """Load a state dict (the port's, or a reference NeRF-MAE one: its
+    `pos_embed` and `*.relative_position_index` buffers are derived here and
+    dropped) into `model`, strictly otherwise."""
+    sd = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+          for k, v in weights.items() if not _DERIVED.search(k)}
+    model.load_state_dict(sd, strict=True)
+
+
+def load_weights_file(model, path: str) -> None:
+    """`.npz`: the flattened JAX parameter tree, through params_from_jax;
+    `.pt`/`.pth`: a state dict of the port or of the reference (a checkpoint
+    dict holding it under "state_dict" is also taken)."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as f:
+            flat = {k: f[k] for k in f.files}
+        load_weights(model, params_from_jax(flat, model.cfg))
+        return
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    load_weights(model, sd.get("state_dict", sd))
