@@ -1,13 +1,13 @@
 """Typed configuration of the PyTorch port (counterpart of nerf_mae_tpu/config.py).
 
-Same dataclasses, presets and validation as the JAX package; `dtype` is a
-`torch.dtype`. The training configuration is not part of this package yet.
+Same dataclasses, presets, defaults and validation as the JAX package;
+`dtype` is a `torch.dtype`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -97,6 +97,18 @@ class MAEConfig:
     # False reproduces the reference's one-mask-per-batch quirk.
     per_sample_mask: bool = True
     compute_dtype: str = "bfloat16"  # dtype of matmuls/convs; params stay fp32
+    # torch.utils.checkpoint on each Swin block of the stages that remat, in
+    # training; stages that run the fused block kernel never remat (its
+    # backward recomputes the block from the block's input anyway).
+    remat: bool = True
+    # checkpoint the UNETR decoder blocks and the subpixel head too
+    decoder_remat: bool = False
+    # "nothing" recomputes everything; "dots" keeps the matmul and
+    # convolution outputs (less recompute, more memory)
+    remat_policy: str = "nothing"
+    # per-stage override of `remat` (one bool per stage), or None = `remat`
+    # everywhere; the late stages' activations are small
+    remat_stages: Optional[Tuple[bool, ...]] = (True, True, False, False)
     # "subpixel": res-block + projection at the token grid, then
     # depth-to-space; "unetr": the reference's ConvTranspose(4x) + full-res
     # res-block, for architecture-parity runs.
@@ -116,6 +128,8 @@ class MAEConfig:
             raise ValueError(f"compute_dtype {self.compute_dtype!r} unsupported")
         if self.decoder_type not in ("subpixel", "unetr"):
             raise ValueError(f"decoder_type {self.decoder_type!r} unsupported")
+        if self.remat_policy not in ("nothing", "dots"):
+            raise ValueError(f"remat_policy {self.remat_policy!r} unsupported")
 
     @property
     def token_grid(self) -> int:
@@ -124,3 +138,28 @@ class MAEConfig:
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization config (reference: nerf_mae/train_mae3d.sh:16-35,
+    run_swin_mae3d.py AdamW+OneCycleLR setup)."""
+
+    batch_size: int = 32
+    num_epochs: int = 2000
+    lr: float = 1e-4
+    weight_decay: float = 1e-3
+    clip_grad_norm: float = 0.1
+    # Zero (do not apply) the gradients of a step whose norm is nan/inf
+    # instead of letting the nan reach every parameter through the clip.
+    skip_nonfinite_updates: bool = True
+    # torch OneCycleLR (anneal_strategy="cos") defaults
+    onecycle_pct_start: float = 0.3
+    onecycle_div_factor: float = 25.0
+    onecycle_final_div_factor: float = 1e4
+    seed: int = 0
+    log_interval: int = 10
+    eval_interval: int = 10
+    ckpt_interval: int = 20
+    ckpt_dir: str = "checkpoints"
+    keep_checkpoints: int = 3

@@ -9,6 +9,10 @@ plus the subpixel head, which has no reference name and keeps its own
   Linear  (I, O)          -> (O, I)
   Conv    (D, H, W, I, O) -> (O, I, D, H, W)
   ConvT   undo the spatial flip, then (D, H, W, I, O) -> (I, O, D, H, W)
+
+`adamw_state_from_jax` carries an optax adamw state (the moments are trees
+shaped like the parameters, so they map the same way) into the port's
+torch.optim.AdamW.
 """
 
 from __future__ import annotations
@@ -166,3 +170,20 @@ def load_weights_file(model, path: str) -> None:
         return
     sd = torch.load(path, map_location="cpu", weights_only=True)
     load_weights(model, sd.get("state_dict", sd))
+
+
+def adamw_state_from_jax(mu: Mapping, nu: Mapping, count: int, model,
+                         optimizer) -> None:
+    """Load optax adamw moments into `optimizer` (a torch.optim.AdamW over
+    model.parameters()): `mu`/`nu` are the ScaleByAdamState trees (nested or
+    "/"-flat, as numpy) and `count` its update count, which becomes each
+    parameter's step."""
+    cfg = model.cfg
+    m = params_from_jax(mu, cfg)
+    v = params_from_jax(nu, cfg)
+    for name, prm in model.named_parameters():
+        optimizer.state[prm] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": m[name].to(prm.device).clone(),
+            "exp_avg_sq": v[name].to(prm.device).clone(),
+        }

@@ -1,5 +1,6 @@
 // Building blocks shared by the fused Swin-block and fused window-attention
-// forward kernels (fused_block.cu, fused_attention.cu).
+// kernels: the forwards (fused_block.cu, fused_attention.cu) and the
+// backwards (fused_block_bwd.cu, fused_attention_bwd.cu).
 //
 // Layouts: activations are channel-last; inside a block the tokens travel in
 // window order, row r = ((b * nW + window) * N + token), so that one window's
@@ -167,6 +168,7 @@ enum Epilogue {
   EPI_FC1_GELU,       // f1 = T(T(acc) + T(b)); g = T(gelu_tanh(f1))
   EPI_FC2_RESID_OUT,  // f2 = T(T(acc) + T(b)); out[src] = T(x1 + T(f2 * T(keep_m)))
   EPI_PROJ_OUT,       // out[src] = T(acc + b)
+  EPI_FC1_BOTH,       // as EPI_FC1_GELU, and f1 kept in aux (backward recompute)
 };
 
 struct Epi {
@@ -177,6 +179,7 @@ struct Epi {
   const void* x1;       // EPI_FC2_RESID_OUT: residual, window order
   const float* keep;    // [B, 2] per-sample droppath factors
   void* out;
+  void* aux;            // EPI_FC1_BOTH: f1
   Geom g;
 };
 
@@ -202,9 +205,10 @@ __device__ __forceinline__ void epilogue(const Epi& e, int Nc, int m, int n,
     float xv = src < 0 ? 0.f : to_f(((const T*)e.x)[(size_t)src * Nc + n]);
     float ka = rnd<T>(e.keep[2 * b]);
     out[(size_t)m * Nc + n] = from_f<T>(xv + rnd<T>(y * ka));
-  } else if (MODE == EPI_FC1_GELU) {
+  } else if (MODE == EPI_FC1_GELU || MODE == EPI_FC1_BOTH) {
     float f1 = rnd<T>(rnd<T>(acc) + rnd<T>(e.bias[n]));
     out[(size_t)m * Nc + n] = from_f<T>(gelu_tanh(f1));
+    if (MODE == EPI_FC1_BOTH) ((T*)e.aux)[(size_t)m * Nc + n] = from_f<T>(f1);
   } else if (MODE == EPI_FC2_RESID_OUT) {
     if (src < 0) return;
     float f2 = rnd<T>(rnd<T>(acc) + rnd<T>(e.bias[n]));
@@ -456,5 +460,493 @@ inline cudaError_t launch_attn(const T* qkv, const float* rel_bias,
   window_attn<T><<<grid, 256, smem, st>>>(qkv, rel_bias, g, C, heads, has_shift, o);
   return cudaGetLastError();
 }
+
+
+// ===========================================================================
+// Backward building blocks.
+//
+// The TPU backward kernels add the weight, bias, LayerNorm and logit
+// gradients into outputs that stay resident across a sequential grid. CUDA
+// blocks run concurrently and in no order, so every such sum is split here:
+// each block writes a float32 partial over its share of the rows, and one
+// more launch (sum_parts) adds the partials in a fixed order. There are no
+// float atomics, so every result is deterministic.
+// ===========================================================================
+
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  // _gelu_tanh_grad of the JAX kernel, same operation order
+  const float k0 = 0.7978845608028654f, c = 0.044715f;
+  float u = k0 * (x + c * x * x * x);
+  float t = tanhf(u);
+  float du = k0 * (1.f + 3.f * c * x * x);
+  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du;
+}
+
+// out[i] = sum_p part[p * L + i] over p = 0 .. P-1 in order.
+__global__ void __launch_bounds__(256)
+sum_parts(const float* __restrict__ part, int P, long long L,
+          float* __restrict__ out) {
+  long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= L) return;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[(size_t)p * L + i];
+  out[i] = s;
+}
+
+inline cudaError_t launch_sum_parts(const float* part, int P, long long L,
+                                    float* out, cudaStream_t st) {
+  sum_parts<<<(unsigned)((L + 255) / 256), 256, 0, st>>>(part, P, L, out);
+  return cudaGetLastError();
+}
+
+// Column sums of a row-major [M, N] matrix, first pass: block (x, p) sums
+// columns [32x, 32x + 32) over rows [p * rows_per, (p + 1) * rows_per) and
+// writes part[p, column]. Thread (tx, ty) = (column, row phase).
+template <typename S>
+__global__ void __launch_bounds__(256)
+colsum_part(const S* __restrict__ src, long long M, int N, long long rows_per,
+            float* __restrict__ part) {
+  __shared__ float red[8][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + tx;
+  const long long r0 = (long long)blockIdx.y * rows_per;
+  const long long r1 = r0 + rows_per < M ? r0 + rows_per : M;
+  float s = 0.f;
+  if (col < N)
+    for (long long r = r0 + ty; r < r1; r += 8) s += to_f(src[r * N + col]);
+  red[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && col < N) {
+    float t = 0.f;
+    for (int i = 0; i < 8; ++i) t += red[i][tx];
+    part[(size_t)blockIdx.y * N + col] = t;
+  }
+}
+
+// Row chunks of colsum_part: at most 128, of at least 1024 rows.
+inline int colsum_parts(long long M) {
+  long long p = (M + 1023) / 1024;
+  return (int)(p < 1 ? 1 : (p > 128 ? 128 : p));
+}
+
+// out[n] = sum_m src[m, n] (float32), deterministic. part holds
+// colsum_parts(M) * N floats.
+template <typename S>
+inline cudaError_t launch_colsum(const S* src, long long M, int N, float* part,
+                                 float* out, cudaStream_t st) {
+  const int P = colsum_parts(M);
+  const long long rows_per = (M + P - 1) / P;
+  colsum_part<S><<<dim3((N + 31) / 32, P), 256, 0, st>>>(src, M, N, rows_per, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_parts(part, P, N, out, st);
+}
+
+// ---------------------------------------------------------------------------
+// Backward products, float32 accumulation:
+//   FORM_NN: C[m, n] = sum_k A[m, k] B[k, n], A row-major [M, K]
+//            (dh = d @ W, W the torch-layout [K, N] weight);
+//   FORM_TN: C[m, n] = sum_k A[k, m] B[k, n], A row-major [K, M]
+//            (dW = D^T H, the sum running over the token rows).
+// B is row-major [K, N]. Both operands are rounded to the compute type T on
+// their way into shared memory: the JAX kernel's `.astype(d)` of a float32
+// gradient before its product. The K range is split over blockIdx.z; with
+// E2_STORE each split writes its own partial at out + z * M * N, which
+// sum_parts adds in order.
+// ---------------------------------------------------------------------------
+
+enum Form { FORM_NN = 0, FORM_TN };
+
+enum Epilogue2 {
+  E2_STORE = 0,   // out[z][m, n] = acc
+  E2_GELU_GRAD,   // out[m, n] = acc * gelu_tanh_grad(aux[m, n]), aux = f1 in T
+  E2_SCATTER,     // out_t[row_source(m), n] = T(acc); pad rows dropped
+};
+
+struct Epi2 {
+  float* out;
+  const void* aux;
+  void* out_t;
+  Geom g;
+};
+
+template <typename T, int EPI>
+__device__ __forceinline__ void epilogue2(const Epi2& e, int M, int N, int m,
+                                          int n, long long src, float acc) {
+  const size_t i = (size_t)m * N + n;
+  if (EPI == E2_STORE) {
+    e.out[(size_t)blockIdx.z * M * N + i] = acc;
+  } else if (EPI == E2_GELU_GRAD) {
+    e.out[i] = acc * gelu_tanh_grad(to_f(((const T*)e.aux)[i]));
+  } else if (src >= 0) {
+    ((T*)e.out_t)[(size_t)src * N + n] = from_f<T>(acc);
+  }
+}
+
+// bf16 tensor cores: the forward GEMM's 128x64 tile and warp layout.
+constexpr int G2_LDA_NN = GB_K + 8;  // As[m][k]
+constexpr int G2_LDA_TN = GB_M + 8;  // As[k][m]
+constexpr int G2_LDB = GB_N + 8;     // Bs[k][n]
+constexpr int G2_BS_OFF = GB_M * G2_LDA_NN;  // >= GB_K * G2_LDA_TN
+
+template <int FORM, int EPI, typename SA, typename SB>
+__global__ void __launch_bounds__(256)
+gemm2_bf16(const SA* __restrict__ A, const SB* __restrict__ B, int M, int N,
+           long long K, long long k_per_split, Epi2 e) {
+  using namespace nvcuda;
+  __shared__ __align__(128) unsigned char smem[GB_M * G_LDC * 4];
+  __shared__ long long row_src[GB_M];
+  bf16* As = (bf16*)smem;
+  bf16* Bs = As + G2_BS_OFF;
+  float* Cs = (float*)smem;  // reused after the main loop
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+  const long long kb = (long long)blockIdx.z * k_per_split;
+  const long long ke = kb + k_per_split < K ? kb + k_per_split : K;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (long long k0 = kb; k0 < ke; k0 += GB_K) {
+    if (FORM == FORM_NN) {
+      for (int v = tid; v < GB_M * GB_K; v += 256) {
+        int r = v / GB_K, c = v % GB_K;
+        long long gk = k0 + c;
+        int gm = m0 + r;
+        float a = (gm < M && gk < ke) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
+        As[r * G2_LDA_NN + c] = from_f<bf16>(a);
+      }
+    } else {
+      for (int v = tid; v < GB_M * GB_K; v += 256) {
+        int r = v / GB_M, c = v % GB_M;  // r: k, c: m
+        long long gk = k0 + r;
+        int gm = m0 + c;
+        float a = (gm < M && gk < ke) ? to_f(A[(size_t)gk * M + gm]) : 0.f;
+        As[r * G2_LDA_TN + c] = from_f<bf16>(a);
+      }
+    }
+    for (int v = tid; v < GB_K * GB_N; v += 256) {
+      int r = v / GB_N, c = v % GB_N;
+      long long gk = k0 + r;
+      int gn = n0 + c;
+      float b = (gn < N && gk < ke) ? to_f(B[(size_t)gk * N + gn]) : 0.f;
+      Bs[r * G2_LDB + c] = from_f<bf16>(b);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GB_K; kk += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(bfr[j], Bs + kk * G2_LDB + wn * 32 + j * 16, G2_LDB);
+      if constexpr (FORM == FORM_NN) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * G2_LDA_NN + kk,
+                                 G2_LDA_NN);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
+      } else {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(a[i], As + kk * G2_LDA_TN + wm * 32 + i * 16,
+                                 G2_LDA_TN);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * G_LDC + wn * 32 + j * 16,
+                              acc[i][j], G_LDC, wmma::mem_row_major);
+  if (tid < GB_M) {
+    long long m = (long long)m0 + tid;
+    row_src[tid] = (EPI == E2_SCATTER && m < M) ? row_source(e.g, m) : -1;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < GB_M * GB_N; idx += 256) {
+    int r = idx / GB_N, c = idx % GB_N;
+    int m = m0 + r, n = n0 + c;
+    if (m < M && n < N)
+      epilogue2<bf16, EPI>(e, M, N, m, n, row_src[r], Cs[r * G_LDC + c]);
+  }
+}
+
+// float32 on the FMA units, 64x64 tile, 4x4 per thread: the float32
+// configuration only.
+template <int FORM, int EPI, typename SA, typename SB>
+__global__ void __launch_bounds__(256)
+gemm2_f32(const SA* __restrict__ A, const SB* __restrict__ B, int M, int N,
+          long long K, long long k_per_split, Epi2 e) {
+  constexpr int TM = 64, TN = 64, TK = 16;
+  __shared__ float As[TK][TM + 4];
+  __shared__ float Bs[TK][TN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const long long kb = (long long)blockIdx.z * k_per_split;
+  const long long ke = kb + k_per_split < K ? kb + k_per_split : K;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (long long k0 = kb; k0 < ke; k0 += TK) {
+    for (int v = tid; v < TM * TK; v += 256) {
+      int r, k;
+      if (FORM == FORM_NN) { r = v / TK; k = v % TK; } else { k = v / TM; r = v % TM; }
+      int gm = m0 + r;
+      long long gk = k0 + k;
+      float a = 0.f;
+      if (gm < M && gk < ke)
+        a = to_f(FORM == FORM_NN ? A[(size_t)gm * K + gk] : A[(size_t)gk * M + gm]);
+      As[k][r] = a;
+      int kb2 = v / TN, c = v % TN, gn = n0 + c;
+      long long gk2 = k0 + kb2;
+      Bs[kb2][c] = (gn < N && gk2 < ke) ? to_f(B[(size_t)gk2 * N + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < TK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  for (int i = 0; i < 4; ++i) {
+    int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+    long long src = EPI == E2_SCATTER ? row_source(e.g, m) : -1;
+    for (int j = 0; j < 4; ++j) {
+      int n = n0 + tx * 4 + j;
+      if (n < N) epilogue2<float, EPI>(e, M, N, m, n, src, acc[i][j]);
+    }
+  }
+}
+
+// T is the compute type: bf16 runs the tensor-core kernel, float the FMA one.
+// `splits` cuts K into ranges of whole K tiles (E2_STORE only).
+template <typename T, int FORM, int EPI, typename SA, typename SB>
+inline cudaError_t launch_gemm2(const SA* A, const SB* B, int M, int N,
+                                long long K, int splits, const Epi2& e,
+                                cudaStream_t st) {
+  long long per = (K + splits - 1) / splits;
+  per = (per + GB_K - 1) / GB_K * GB_K;
+  if constexpr (sizeof(T) == 2) {
+    dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M, splits);
+    gemm2_bf16<FORM, EPI, SA, SB><<<grid, 256, 0, st>>>(A, B, M, N, K, per, e);
+  } else {
+    dim3 grid((N + 63) / 64, (M + 63) / 64, splits);
+    gemm2_f32<FORM, EPI, SA, SB><<<grid, 256, 0, st>>>(A, B, M, N, K, per, e);
+  }
+  return cudaGetLastError();
+}
+
+// Row splits of a weight-gradient product: ranges of at least 2048 rows,
+// at most 64 of them.
+inline int wgrad_splits(long long rows) {
+  long long s = (rows + 2047) / 2048;
+  return (int)(s < 1 ? 1 : (s > 64 ? 64 : s));
+}
+
+// out[n1, n2] = sum_r T(D[r, n1]) * T(H[r, n2]) over `rows` rows, in float32:
+// split-row partials, then a fixed-order sum. part holds
+// wgrad_splits(rows) * n1 * n2 floats.
+template <typename T, typename SA, typename SB>
+inline cudaError_t weight_grad(const SA* D, const SB* H, long long rows, int n1,
+                               int n2, float* part, float* out, cudaStream_t st) {
+  const int S = wgrad_splits(rows);
+  Epi2 e = {};
+  e.out = part;
+  cudaError_t err = launch_gemm2<T, FORM_TN, E2_STORE>(D, H, n1, n2, rows, S, e, st);
+  if (err != cudaSuccess) return err;
+  return launch_sum_parts(part, S, (long long)n1 * n2, out, st);
+}
+
+// ---------------------------------------------------------------------------
+// Window attention backward: one block per (group of windows, head). Per
+// window it recomputes p (float32, as the forward) from the T-rounded q
+// (already scaled), k, v, the bias and the shift mask, then
+//   dp = T(do) v^T, dv = T(p)^T T(do), dl = p * (dp - rowsum(dp * p)),
+//   dq = (T(dl) k) * scale, dk = T(dl)^T q,
+// written into dqkv [M, 3C] (float32, the qkv column layout). The group's
+// dl are summed in window order into dlogit_part[group, head]; sum_parts
+// then adds the groups in order.
+// ---------------------------------------------------------------------------
+
+inline size_t attn_bwd_smem_bytes(int N, int hd) {
+  return sizeof(float) * (4 * (size_t)N * (hd + 1) + 2 * (size_t)N * (N + 1) +
+                          (size_t)N * N) +
+         sizeof(int) * N;
+}
+
+// Windows per block: groups of enough windows that at most ~1024 groups
+// (each a [heads, N, N] partial) are written.
+inline int attn_bwd_windows_per_group(long long n_win) {
+  return (int)((n_win + 1023) / 1024);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+window_attn_bwd(const T* __restrict__ qkv, const float* __restrict__ dout,
+                const float* __restrict__ rel_bias, Geom g, int C, int heads,
+                int has_shift, int wpg, int n_win, float scale,
+                float* __restrict__ dqkv, float* __restrict__ dlogit_part) {
+  extern __shared__ float sm[];
+  const int N = g.N, hd = C / heads, ld = hd + 1, lp = N + 1;
+  const int grp = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* q = sm;
+  float* k = q + N * ld;
+  float* v = k + N * ld;
+  float* dO = v + N * ld;
+  float* P = dO + N * ld;
+  float* D = P + N * lp;
+  float* acc = D + N * lp;
+  int* lab = (int*)(acc + N * N);
+  for (int idx = tid; idx < N * N; idx += 256) acc[idx] = 0.f;
+  const float* rb = rel_bias + (size_t)h * N * N;
+  const int w_end = (grp + 1) * wpg < n_win ? (grp + 1) * wpg : n_win;
+
+  for (int bw = grp * wpg; bw < w_end; ++bw) {
+    const int w = bw % g.nW;
+    const size_t row0 = (size_t)bw * N;
+    __syncthreads();  // the previous window is done with shared memory
+    for (int idx = tid; idx < N * hd; idx += 256) {
+      int i = idx / hd, d = idx % hd;
+      const T* r = qkv + (row0 + i) * 3 * C + h * hd + d;
+      q[i * ld + d] = to_f(r[0]);
+      k[i * ld + d] = to_f(r[C]);
+      v[i * ld + d] = to_f(r[2 * C]);
+      dO[i * ld + d] = rnd<T>(dout[(row0 + i) * C + h * hd + d]);
+    }
+    if (has_shift)
+      for (int t = tid; t < N; t += 256) lab[t] = region_label(g, w, t);
+    __syncthreads();
+
+    for (int idx = tid; idx < N * N; idx += 256) {
+      int i = idx / N, j = idx % N;
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        s = fmaf(q[i * ld + d], k[j * ld + d], s);
+        dp = fmaf(dO[i * ld + d], v[j * ld + d], dp);
+      }
+      s += rb[idx];
+      if (has_shift && lab[i] != lab[j]) s += -100.f;
+      P[i * lp + j] = s;
+      D[i * lp + j] = dp;
+    }
+    __syncthreads();
+
+    for (int i = warp; i < N; i += 8) {
+      float* pr = P + i * lp;
+      float* dr = D + i * lp;
+      float mx = -INFINITY;
+      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, pr[j]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < N; j += 32) {
+        float ex = expf(pr[j] - mx);
+        pr[j] = ex;
+        sum += ex;
+      }
+      sum = warp_sum(sum);
+      float dot = 0.f;
+      for (int j = lane; j < N; j += 32) {
+        pr[j] = pr[j] / sum;
+        dot += dr[j] * pr[j];
+      }
+      dot = warp_sum(dot);
+      for (int j = lane; j < N; j += 32) {
+        float dl = pr[j] * (dr[j] - dot);
+        dr[j] = dl;
+        acc[i * N + j] += dl;
+      }
+    }
+    __syncthreads();
+
+    for (int idx = tid; idx < N * hd; idx += 256) {
+      int i = idx / hd, d = idx % hd;
+      float dq = 0.f, dk = 0.f, dv = 0.f;
+      for (int j = 0; j < N; ++j) {
+        dq = fmaf(rnd<T>(D[i * lp + j]), k[j * ld + d], dq);
+        dk = fmaf(rnd<T>(D[j * lp + i]), q[j * ld + d], dk);
+        dv = fmaf(rnd<T>(P[j * lp + i]), dO[j * ld + d], dv);
+      }
+      float* out = dqkv + (row0 + i) * 3 * C + h * hd + d;
+      out[0] = dq * scale;
+      out[C] = dk;
+      out[2 * C] = dv;
+    }
+  }
+  __syncthreads();
+  float* part = dlogit_part + ((size_t)grp * heads + h) * N * N;
+  for (int idx = tid; idx < N * N; idx += 256) part[idx] = acc[idx];
+}
+
+// dqkv [M, 3C] and dlogit [heads, N, N] from qkv (T) and do (float32).
+// part holds attn_bwd_part_floats(...) floats.
+inline long long attn_bwd_part_floats(const Geom& g, int heads) {
+  const long long n_win = (long long)g.B * g.nW;
+  const int wpg = attn_bwd_windows_per_group(n_win);
+  return (n_win + wpg - 1) / wpg * heads * (long long)g.N * g.N;
+}
+
+template <typename T>
+inline cudaError_t launch_attn_bwd(const T* qkv, const float* dout,
+                                   const float* rel_bias, const Geom& g, int C,
+                                   int heads, float scale, float* dqkv,
+                                   float* part, float* dlogit, cudaStream_t st) {
+  const size_t smem = attn_bwd_smem_bytes(g.N, C / heads);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        window_attn_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_win = g.B * g.nW;
+  const int wpg = attn_bwd_windows_per_group(n_win);
+  const int groups = (n_win + wpg - 1) / wpg;
+  const int has_shift = (g.s0 + g.s1 + g.s2) > 0;
+  window_attn_bwd<T><<<dim3(groups, heads), 256, smem, st>>>(
+      qkv, dout, rel_bias, g, C, heads, has_shift, wpg, n_win, scale, dqkv, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_parts(part, groups, (long long)heads * g.N * g.N, dlogit, st);
+}
+
+// Bump allocator over one workspace buffer (256-byte aligned pieces). With
+// a null base it only measures: the total is the bytes to allocate.
+struct Carve {
+  char* base;
+  size_t used = 0;
+  template <typename X> X* take(size_t n) {
+    X* r = (X*)(base + used);
+    used += (n * sizeof(X) + 255) / 256 * 256;
+    return r;
+  }
+};
 
 }  // namespace swin

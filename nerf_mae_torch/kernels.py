@@ -26,7 +26,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # one library per kernel source
-SOURCES = ("fused_block", "fused_attention")
+SOURCES = ("fused_block", "fused_attention", "fused_block_bwd",
+           "fused_attention_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,6 +100,16 @@ def gemm_operand(t, dtype, name: str):
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned for the kernel")
     return t
+
+
+def int_array(values):
+    """A C int array of `values` (a kernel's dimensions)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def ptr_array(tensors):
+    """A C array of the tensors' device pointers, in order."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def check(code: int, what: str) -> None:

@@ -20,7 +20,12 @@ import torch
 from torch import nn
 
 from nerf_mae_torch.config import MAEConfig
-from nerf_mae_torch.models.swin import Norm, SwinEncoder3D, flax_layer_norm
+from nerf_mae_torch.models.swin import (
+    Norm,
+    SwinEncoder3D,
+    flax_layer_norm,
+    remat_call,
+)
 from nerf_mae_torch.models.unetr import (
     Conv3d,
     SubpixelHead3D,
@@ -85,7 +90,12 @@ class SwinMAE3D(nn.Module):
             "2": Norm(e, device=device),
         })
         self.mask_token = nn.Parameter(torch.empty(e, device=device))
-        self.stages = SwinEncoder3D(cfg.swin, dtype=dt, device=device)
+        remat_stages = cfg.remat_stages
+        if remat_stages is None:
+            remat_stages = (cfg.remat,) * len(cfg.swin.depths)
+        self.stages = SwinEncoder3D(cfg.swin, dtype=dt, device=device,
+                                    remat_stages=remat_stages,
+                                    remat_policy=cfg.remat_policy)
         self.decoder4 = UnetrUpBlock3D(e * 8, e * 4, dtype=dt, device=device)
         self.decoder3 = UnetrUpBlock3D(e * 4, e * 2, dtype=dt, device=device)
         self.decoder2 = UnetrUpBlock3D(e * 2, e, dtype=dt, device=device)
@@ -111,17 +121,27 @@ class SwinMAE3D(nn.Module):
         x = flax_layer_norm(x, norm.weight, norm.bias, cfg.swin.norm_eps).to(dt)
         return x + pos_embed_tensor(cfg.swin.embed_dim, x.shape[1], x.device, dt)
 
+    def _decode(self, module, *args):
+        """A decoder block, under torch.utils.checkpoint with decoder_remat
+        in training."""
+        if self.cfg.decoder_remat and torch.is_grad_enabled():
+            return remat_call(module, self.cfg.remat_policy, *args)
+        return module(*args)
+
     def forward(
         self,
         grids: torch.Tensor,
+        deterministic: bool = True,
         token_mask: Optional[torch.Tensor] = None,  # [B, T, T, T] bool
         generator: Optional[torch.Generator] = None,
         patched_pred: bool = False,
+        droppath_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (pred [B, R, R, R, 4] float32, or its patchify_3d
         permutation when patched_pred, and token_mask [B, T, T, T] bool).
         Without token_mask the mask is drawn from `generator`, which is
-        then required."""
+        then required. A training forward (deterministic=False) draws the
+        stochastic-depth keep factors from `droppath_generator`."""
         cfg = self.cfg
         x = self.embed(grids)
         if token_mask is None:
@@ -137,22 +157,24 @@ class SwinMAE3D(nn.Module):
         # (reference: swin_mae3d.py:1461-1463, 1375-1380)
         x = torch.where(token_mask[..., None], self.mask_token.to(cfg.dtype), x)
 
-        f = self.stages(x)
-        d = self.decoder4(f[3], f[2])
-        d = self.decoder3(d, f[1])
-        d = self.decoder2(d, f[0])
+        f = self.stages(x, deterministic, droppath_generator)
+        d = self._decode(self.decoder4, f[3], f[2])
+        d = self._decode(self.decoder3, d, f[1])
+        d = self._decode(self.decoder2, d, f[0])
         if cfg.decoder_type == "subpixel":
-            pred = self.subpixel_head(d, patched=patched_pred)
+            pred = self._decode(
+                lambda t: self.subpixel_head(t, patched=patched_pred), d)
         else:
-            pred = self.out(self.decoder1(d))
+            pred = self.out(self._decode(self.decoder1, d))
             if patched_pred:
                 pred = patchify_3d(pred, cfg.swin.patch_size[0])
         return pred.float(), token_mask
 
-    def encode(self, grids: torch.Tensor) -> List[torch.Tensor]:
+    def encode(self, grids: torch.Tensor,
+               deterministic: bool = True) -> List[torch.Tensor]:
         """Unmasked feature pyramid for downstream backbones
         (reference: feature_extractor.py:1155-1176)."""
-        return self.stages(self.embed(grids))
+        return self.stages(self.embed(grids), deterministic)
 
 
 def _trunc_normal(shape, std, gen, device):

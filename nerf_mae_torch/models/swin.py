@@ -13,19 +13,39 @@ with the kernels wanted (attention_impl "kernel", or "auto" on a CUDA
 tensor), a tanh-GELU block with C <= 512 runs the fused Swin-block kernel;
 otherwise the attention runs the fused window-attention kernel where
 C <= 512, with LN and the MLP in plain PyTorch; everything else is the
-plain composition.
+plain composition. Under autograd the kernels run through their
+torch.autograd.Functions (FusedSwinBlockFn, FusedWindowAttentionFn), whose
+backwards are kernels too.
+
+Training (deterministic=False) draws the per-sample stochastic-depth keep
+factors from a droppath generator; a stage whose `remat` is on runs each
+block under torch.utils.checkpoint, except where the fused block kernel
+runs (it recomputes the block in its backward already: swin.py:323-342 of
+the JAX package).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from nerf_mae_torch.config import SwinConfig
-from nerf_mae_torch.ops.fused_attention import fused_window_attention
-from nerf_mae_torch.ops.fused_block import fused_swin_block, layer_norm
+from nerf_mae_torch.ops.fused_attention import (
+    FusedWindowAttentionFn,
+    fused_window_attention,
+)
+from nerf_mae_torch.ops.fused_block import (
+    FusedSwinBlockFn,
+    fused_swin_block,
+    layer_norm,
+)
 from nerf_mae_torch.ops.window_attention import (
     kernel_supported,
     mm_f32,
@@ -67,6 +87,26 @@ def droppath_keep(batch: int, rate: float,
     draws feed the fused kernel and the plain path)."""
     keep = torch.rand(batch, generator=generator, device=generator.device)
     return (keep < 1.0 - rate).float() / (1.0 - rate)
+
+
+# ops whose outputs remat_policy="dots" keeps (JAX's dots_saveable)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.convolution.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn, policy: str, *args):
+    """fn(*args) under torch.utils.checkpoint: "nothing" keeps only the
+    inputs, "dots" also the matmul and convolution outputs."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(
+                              _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def flax_layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -125,6 +165,8 @@ class SwinBlock3D(nn.Module):
             "0": Linear(dim, hidden, device=device),
             "3": Linear(hidden, dim, device=device),
         })
+        # set by SwinEncoder3D from the stage's remat setting
+        self.remat, self.remat_policy = False, "nothing"
 
     def _kernels_wanted(self, x: torch.Tensor) -> bool:
         if self.attention_impl == "plain":
@@ -152,22 +194,52 @@ class SwinBlock3D(nn.Module):
             self._cast_cache = cached
         return cached[1]
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [B, G0, G1, G2, C]. `generator` draws the stochastic-depth keep
-        factors; None runs deterministically (inference)."""
-        attn, fc1, fc2 = self.attn, self.mlp["0"], self.mlp["3"]
-        kernels = self._kernels_wanted(x) and kernel_supported(x.shape[-1], self.window)
+    def _kernels(self, x: torch.Tensor) -> bool:
+        """True where this block runs a kernel: the fused block (tanh GELU)
+        or the fused window attention."""
+        return self._kernels_wanted(x) and kernel_supported(x.shape[-1], self.window)
+
+    def keep_factors(self, x: torch.Tensor, deterministic: bool,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """[B, 2] float32 (attention, MLP) stochastic-depth keep/(1-rate)
+        factors: ones when deterministic or the rate is 0, else drawn from
+        `generator`."""
         b = x.shape[0]
         rate = self.drop_path_rate
-        keep = torch.ones((b, 2), dtype=torch.float32, device=x.device)
-        if generator is not None and rate > 0.0:
-            keep = torch.stack([droppath_keep(b, rate, generator),
-                                droppath_keep(b, rate, generator)], -1)
+        if deterministic or rate == 0.0:
+            return torch.ones((b, 2), dtype=torch.float32, device=x.device)
+        if generator is None:
+            raise ValueError("a training forward with stochastic depth needs "
+                             "a droppath generator")
+        return torch.stack([droppath_keep(b, rate, generator),
+                            droppath_keep(b, rate, generator)], -1)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, G0, G1, G2, C]. Training (deterministic=False) draws the
+        keep factors from `generator`; they are drawn before a remat'd block
+        runs, so its recompute uses the same ones."""
+        keep = self.keep_factors(x, deterministic, generator)
+        fused = self.gelu == "tanh" and self._kernels(x)
+        if self.remat and torch.is_grad_enabled() and not fused:
+            return remat_call(self._block, self.remat_policy, x, keep)
+        return self._block(x, keep)
+
+    def _block(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        attn, fc1, fc2 = self.attn, self.mlp["0"], self.mlp["3"]
+        kernels = self._kernels(x)
+        grad = torch.is_grad_enabled()
 
         if kernels and self.gelu == "tanh":
-            w_qkv, w_proj, w_fc1, w_fc2 = self._kernel_weights()
-            return fused_swin_block(
+            if grad:  # float32 parameters: the Function casts them inside
+                weights = (self.attn.qkv.weight, self.attn.proj.weight,
+                           fc1.weight, fc2.weight)
+                block = FusedSwinBlockFn.apply
+            else:
+                weights = self._kernel_weights()
+                block = fused_swin_block
+            w_qkv, w_proj, w_fc1, w_fc2 = weights
+            return block(
                 x.to(self.dtype),
                 self.norm1.weight, self.norm1.bias,
                 w_qkv, attn.qkv.bias, w_proj, attn.proj.bias,
@@ -179,7 +251,7 @@ class SwinBlock3D(nn.Module):
 
         h = layer_norm(x, self.norm1.weight, self.norm1.bias, self.norm_eps)
         if kernels:
-            attention = fused_window_attention
+            attention = FusedWindowAttentionFn.apply if grad else fused_window_attention
             w_qkv, w_proj = self._kernel_weights()[:2]
         else:
             attention = window_attention_3d
@@ -236,13 +308,16 @@ class SwinEncoder3D(nn.ModuleList):
     names are `stages.{s}.{i}.*` once SwinMAE3D registers it as `stages`.
     Input [B, T, T, T, embed_dim]; returns the per-stage feature pyramid
     [C@T, 2C@T/2, 4C@T/4, 8C@T/8] (reference: swin_mae3d.py:1131-1172).
+    `remat_stages` (one bool per stage) turns on the blocks' checkpointing.
     """
 
     def __init__(self, cfg: SwinConfig, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, remat_stages: Optional[Sequence[bool]] = None,
+                 remat_policy: str = "nothing"):
         stages = []
         total_blocks = sum(cfg.depths)
         block_id = 0
+        remat_stages = remat_stages or (False,) * len(cfg.depths)
         for i_stage, depth in enumerate(cfg.depths):
             dim = cfg.stage_dims[i_stage]
             stage = []
@@ -254,17 +329,20 @@ class SwinEncoder3D(nn.ModuleList):
                 sd = cfg.stochastic_depth_prob * block_id / max(total_blocks - 1, 1)
                 shift = tuple(0 if i_layer % 2 == 0 else ws // 2
                               for ws in cfg.window_size)
-                stage.append(SwinBlock3D(
+                block = SwinBlock3D(
                     dim, cfg.num_heads[i_stage], tuple(cfg.window_size), shift,
                     mlp_ratio=cfg.mlp_ratio, drop_path_rate=sd,
                     norm_eps=cfg.norm_eps, dtype=dtype,
                     attention_impl=cfg.attention_impl, gelu=cfg.gelu,
-                    device=device))
+                    device=device)
+                block.remat = bool(remat_stages[i_stage])
+                block.remat_policy = remat_policy
+                stage.append(block)
                 block_id += 1
             stages.append(nn.ModuleList(stage))
         super().__init__(stages)
 
-    def forward(self, x: torch.Tensor,
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         features = []
         for stage in self:
@@ -272,6 +350,6 @@ class SwinEncoder3D(nn.ModuleList):
                 if isinstance(layer, PatchMerging3D):
                     x = layer(x)
                 else:
-                    x = layer(x, generator)
+                    x = layer(x, deterministic, generator)
             features.append(x)
         return features

@@ -145,24 +145,60 @@ def unpartition_unroll_crop(xw, window, counts, grid, shift):
     return x[:, : grid[0], : grid[1], : grid[2], :]
 
 
+# The cached tensors below are made outside inference_mode even when first
+# asked for under it: a serving call must not leave inference tensors that a
+# later training step would save for its backward.
+
+
 @functools.lru_cache(maxsize=32)
 def _rel_index_tensor(window, device):
-    return torch.tensor(
-        relative_position_index_3d(window), dtype=torch.long, device=device
-    )
+    with torch.inference_mode(False):
+        return torch.tensor(
+            relative_position_index_3d(window), dtype=torch.long, device=device
+        )
 
 
 @functools.lru_cache(maxsize=32)
 def shift_mask_tensor(grid, window, shift, device):
     """shifted_window_mask as a float32 tensor on `device` (or None)."""
     m = shifted_window_mask(grid, window, shift)
-    return None if m is None else torch.tensor(m, device=device)
+    if m is None:
+        return None
+    with torch.inference_mode(False):
+        return torch.tensor(m, device=device)
 
 
 def relative_position_bias(bias_table: torch.Tensor, window) -> torch.Tensor:
     """[(2w-1)^3, heads] table -> [heads, N, N] float32 bias."""
     idx = _rel_index_tensor(tuple(window), bias_table.device)
     return bias_table[idx].permute(2, 0, 1).float()
+
+
+@functools.lru_cache(maxsize=32)
+def _table_members(window, device):
+    """[table, K] positions (into the flattened [N, N] logits) that read each
+    bias-table row, padded with N*N (an appended zero), in increasing order."""
+    idx = relative_position_index_3d(window).reshape(-1)
+    rows = (2 * window[0] - 1) * (2 * window[1] - 1) * (2 * window[2] - 1)
+    counts = np.bincount(idx, minlength=rows)
+    order = np.argsort(idx, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    members = np.full((rows, counts.max()), idx.size, np.int64)
+    for t in range(rows):
+        members[t, : counts[t]] = order[starts[t]: starts[t] + counts[t]]
+    with torch.inference_mode(False):
+        return torch.tensor(members, device=device)
+
+
+def relative_position_bias_grad(dlogit: torch.Tensor, window) -> torch.Tensor:
+    """[heads, N, N] float32 logit gradient -> [(2w-1)^3, heads] bias-table
+    gradient: the scatter-add through relative_position_index_3d, as a
+    gather and a sum in a fixed order (deterministic on every device)."""
+    heads = dlogit.shape[0]
+    flat = dlogit.reshape(heads, -1).float()
+    flat = torch.cat([flat, flat.new_zeros(heads, 1)], dim=1)
+    members = _table_members(tuple(window), dlogit.device)
+    return flat[:, members].sum(-1).t().contiguous()
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,258 @@
+"""MAE pretraining driver (counterpart of scripts/run_mae_pretrain.py), with
+the same flag names where the port has the feature; --mode
+{train,eval,benchmark}. Runs on the CUDA card unless --device cpu.
+
+    python -m nerf_mae_torch.run_mae_pretrain --mode train --dataset synthetic \
+        --backbone_type swin_b --resolution 160 --batch_size 8 --steps 100
+
+Only the synthetic dataset is ported so far. Batches are built on the host
+(numpy, patch-major by default) and copied to the card from pinned memory
+with non_blocking. --mode benchmark times 20 synchronized train steps after
+one warm-up step on one batch and prints one JSON line (metric, grids/s,
+step_ms, MFU against the H100's dense bf16 peak, peak memory, device); a
+batch that fails to run (out of memory, say) is not retried at a smaller
+size.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import re
+import time
+
+import numpy as np
+import torch
+
+from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
+from nerf_mae_torch.data import mae_batch_iterator, synthetic_scenes
+from nerf_mae_torch.flops import train_mfu
+from nerf_mae_torch.inference import resolve_device
+from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_mae_torch.train.trainer import MAETrainer
+from nerf_mae_torch.utils import MetricLogger
+
+log = logging.getLogger("nerf_mae_torch.run_mae_pretrain")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train/eval NeRF-MAE (PyTorch)")
+    p.add_argument("--mode", default="train", choices=["train", "eval", "benchmark"])
+    p.add_argument("--dataset", default="front3d",
+                   choices=["front3d", "hypersim", "scannet", "synthetic"])
+    p.add_argument("--backbone_type", default="swin_s", choices=list(SWIN_PRESETS))
+    p.add_argument("--resolution", default=160, type=int)
+    p.add_argument("--masking_prob", default=0.75, type=float)
+    p.add_argument("--masking_strategy", default="random", choices=["random", "grid"])
+    p.add_argument("--batch_size", default=32, type=int)
+    p.add_argument("--num_epochs", default=2000, type=int)
+    p.add_argument("--steps", default=None, type=int,
+                   help="total train steps (overrides num_epochs)")
+    p.add_argument("--lr", default=1e-4, type=float)
+    p.add_argument("--weight_decay", default=1e-3, type=float)
+    p.add_argument("--clip_grad_norm", default=0.1, type=float)
+    p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--no_remat", action="store_true")
+    p.add_argument("--checkpoint_dir", default="checkpoints/mae")
+    p.add_argument("--checkpoint", default=None, help="resume/eval checkpoint dir")
+    p.add_argument("--log_interval", default=10, type=int)
+    p.add_argument("--eval_interval", default=200, type=int,
+                   help="steps between eval passes")
+    p.add_argument("--ckpt_interval", default=500, type=int)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--n_synthetic", default=16, type=int)
+    p.add_argument("--n_synthetic_val", default=0, type=int,
+                   help="held-out synthetic eval scenes (0: n_synthetic/4)")
+    p.add_argument("--eval_json", default=None, help="dump eval metrics to json")
+    p.add_argument("--patch_major_input", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="the host patchifies batches so the patch embed runs "
+                        "as one dense matmul; --no-patch_major_input feeds the "
+                        "voxel grid to the convolution path")
+    p.add_argument("--log_dir", default=None, help="jsonl metric log dir")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return p.parse_args(argv)
+
+
+class _Scenes:
+    def __init__(self, scenes):
+        self.scenes = scenes
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, i):
+        return {"rgbsigma": self.scenes[i]}
+
+
+def build_datasets(args):
+    """(train, val) synthetic scenes; the val draw is disjoint (seed offset)
+    so eval PSNR measures generalization."""
+    if args.dataset != "synthetic":
+        raise SystemExit(f"--dataset {args.dataset}: only --dataset synthetic "
+                         "is ported so far")
+    n_val = args.n_synthetic_val or max(args.n_synthetic // 4, 2)
+    return (_Scenes(synthetic_scenes(args.n_synthetic, args.resolution, args.seed)),
+            _Scenes(synthetic_scenes(n_val, args.resolution, args.seed + 10_000)))
+
+
+def to_device(batch, device: torch.device):
+    """Host numpy batch -> tensors on `device`; to a card through pinned
+    memory with a non-blocking copy."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def device_slug(device: torch.device) -> str:
+    """'h100' for an NVIDIA H100, 'cpu' on the CPU: the metric name's device."""
+    if device.type != "cuda":
+        return "cpu"
+    name = torch.cuda.get_device_name(device).lower()
+    m = re.search(r"\b([a-z]\d{2,4})\b", name)
+    return m.group(1) if m else re.sub(r"[^a-z0-9]+", "_", name).strip("_")
+
+
+def main(argv=None):
+    """CLI entry. Returns the eval metrics (eval), the JSON line's dict
+    (benchmark), or {"steps", "history", "checkpoint_dir"} (train)."""
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    device = resolve_device(args.device)
+    mae_cfg = MAEConfig(
+        swin=SWIN_PRESETS[args.backbone_type],
+        resolution=args.resolution,
+        masking_prob=args.masking_prob,
+        masking_strategy=args.masking_strategy,
+        compute_dtype=args.compute_dtype,
+        remat=not args.no_remat,
+    )
+    train_ds, val_ds = build_datasets(args)
+    steps_per_epoch = max(len(train_ds) // args.batch_size, 1)
+    total_steps = args.steps or steps_per_epoch * args.num_epochs
+    train_cfg = TrainConfig(
+        batch_size=args.batch_size, num_epochs=args.num_epochs, lr=args.lr,
+        weight_decay=args.weight_decay, clip_grad_norm=args.clip_grad_norm,
+        seed=args.seed,
+    )
+    log.info("device: %s", torch.cuda.get_device_name(device)
+             if device.type == "cuda" else "cpu")
+    trainer = MAETrainer(mae_cfg, train_cfg, total_steps, device)
+    state = trainer.init(args.seed)
+    if args.checkpoint:
+        restored = restore_checkpoint(args.checkpoint)
+        state.model.load_state_dict(restored["params"])
+        if args.mode == "train" and "opt_state" in restored:
+            state.optimizer.load_state_dict(restored["opt_state"])
+            state.step = int(restored["step"])
+        log.info("restored step %d from %s", restored["step"], args.checkpoint)
+
+    pm = mae_cfg.swin.patch_size[0] if args.patch_major_input else 0
+    batches = (to_device(b, device) for b in mae_batch_iterator(
+        train_ds, args.batch_size, args.resolution, seed=args.seed, patch_major=pm))
+
+    def run_eval(state):
+        it = mae_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
+                                args.resolution, shuffle=False, loop=False,
+                                drop_last=False, patch_major=pm)
+        ms = [{k: float(v) for k, v in trainer.eval_step(state, to_device(b, device)).items()}
+              for b in it]
+        agg = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]} if ms else {}
+        log.info("eval: %s", agg)
+        return agg
+
+    if args.mode == "eval":
+        agg = run_eval(state)
+        if args.eval_json:
+            with open(args.eval_json, "w") as f:
+                json.dump(agg, f)
+        return agg
+
+    if args.mode == "benchmark":
+        return benchmark(args, trainer, state, next(batches), mae_cfg, device)
+
+    mlog = MetricLogger(args.log_dir, run_name=f"mae_{args.backbone_type}")
+    history = []
+    best_psnr = -1.0
+    keep = train_cfg.keep_checkpoints
+    t0 = time.time()
+    for step in range(state.step + 1, total_steps + 1):
+        state, metrics = trainer.train_step(state, next(batches))
+        if step % args.log_interval == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            rate = args.log_interval * args.batch_size / (time.time() - t0)
+            log.info("step %d/%d loss %.4f (rgb %.4f alpha %.4f) gnorm %.3f "
+                     "%.2f grids/s", step, total_steps, m["loss"], m["loss_rgb"],
+                     m["loss_alpha"], m["grad_norm"], rate)
+            mlog.log(step, {**m, "grids_per_sec": rate})
+            history.append({"step": step, **m})
+            t0 = time.time()
+        if step % args.eval_interval == 0 and len(val_ds):
+            agg = run_eval(state)
+            if agg:
+                mlog.log(step, {f"val_{k}": v for k, v in agg.items()})
+            if agg.get("psnr", -1) > best_psnr:
+                best_psnr = agg["psnr"]
+                save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
+                                state.optimizer.state_dict(),
+                                extra={"psnr": best_psnr}, keep=keep)
+                log.info("saved best-PSNR ckpt (%.3f) at step %d", best_psnr, step)
+        elif step % args.ckpt_interval == 0:
+            save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
+                            state.optimizer.state_dict(), keep=keep)
+    save_checkpoint(args.checkpoint_dir, state.step, state.model.state_dict(),
+                    state.optimizer.state_dict(), keep=keep)
+    mlog.close()
+    log.info("done: %d steps", state.step)
+    return {"steps": state.step, "history": history,
+            "checkpoint_dir": args.checkpoint_dir}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def benchmark(args, trainer, state, batch, mae_cfg, device):
+    """One warm-up step, then 20 synchronized steps on `batch`."""
+    state, _ = trainer.train_step(state, batch)
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(20):
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        _sync(device)
+        times.append(time.perf_counter() - t)
+    step_ms = float(np.mean(times) * 1e3)
+    grids_per_sec = args.batch_size / (step_ms / 1e3)
+    slug = device_slug(device)
+    out = {
+        "metric": f"grids_per_sec_per_{slug}_{args.backbone_type.replace('_', '')}"
+                  f"_mae3d_{args.resolution}",
+        "value": grids_per_sec,
+        "unit": "grids/s/device",
+        "step_ms": step_ms,
+        "step_ms_std": float(np.std(times) * 1e3),
+        "batch_size": args.batch_size,
+        # MFU only against a card's peak; a CPU run has no device metric
+        "mfu": train_mfu(grids_per_sec, mae_cfg) if slug == "h100" else None,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if device.type == "cuda" else None),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "loss": float(m["loss"]),
+        "phase": "done",
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()
