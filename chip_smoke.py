@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure raises and the exit code is not 0):
   1. device: the card's name and nvidia-smi's name / power limit;
-  2. build: every kernel of csrc/ with nvcc (sm_90a), timed;
+  2. build: every kernel of csrc/ with nvcc (sm_90a), timed, with ptxas's
+     registers, shared memory and spills of each kernel;
   3. kernels: each hand-written kernel against its plain PyTorch version at
      every (stage, shift) of the swin_b 160^3 forward (batch 1, 2 and 8, bf16)
      and one float32 case, with errors, tolerances and CUDA-event times
@@ -22,7 +23,9 @@ Phases (any failure raises and the exit code is not 0):
   6. backward kernels: each against its plain backward at every (stage,
      shift) of the swin_b 160^3 train step at batch 8 (bf16) and one
      float32 case, errors against tolerances, CUDA-event times beside the
-     bound and the plain time;
+     bound and the plain time; then both kernels forward and backward at
+     bf16 shapes off that path (128-token windows, heads of 12, 64 and 128),
+     each backward twice, bitwise equal;
   7. the train main path: `nerf_mae_torch.run_mae_pretrain.main` trains
      swin_b 160^3 at batch 8 for 6 steps on synthetic scenes (22 fused-block
      forward and 22 backward launches per step, finite losses), `--mode
@@ -36,7 +39,10 @@ Phases (any failure raises and the exit code is not 0):
      forward and backward launches per kernel step;
   9. the same for the erf step: 22 fused-attention forward and backward
      launches;
- 10. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 10. profile: torch.profiler over one block forward and one block backward
+     at stage 0 and at stage 2 (batch 8, unshifted): device time per kernel
+     name, sorted, with launch counts and the sum;
+ 11. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -47,6 +53,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -150,13 +158,14 @@ def check_close(name, got, want, dtype):
     return max_abs
 
 
-def block_weights(c: int, heads: int, gen: torch.Generator, dev, dtype):
+def block_weights(c: int, heads: int, gen: torch.Generator, dev, dtype, window=(4, 4, 4)):
     """Random block parameters (torch layout) from `gen`, scaled so that
     attention is peaked and every branch matters. The four weight matrices
     are in the compute dtype, as SwinBlock3D hands them to the kernels; the
     rest is float32."""
     r = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     f = 4 * c
+    table = math.prod(2 * w - 1 for w in window)
     return dict(
         ln1_scale=1 + 0.1 * r(c), ln1_bias=0.1 * r(c),
         qkv_weight=(r(3 * c, c) / c ** 0.5).to(dtype), qkv_bias=0.1 * r(3 * c),
@@ -164,7 +173,7 @@ def block_weights(c: int, heads: int, gen: torch.Generator, dev, dtype):
         ln2_scale=1 + 0.1 * r(c), ln2_bias=0.1 * r(c),
         fc1_weight=(r(f, c) / c ** 0.5).to(dtype), fc1_bias=0.1 * r(f),
         fc2_weight=(r(c, f) / f ** 0.5).to(dtype), fc2_bias=0.1 * r(c),
-        bias_table=r(343, heads),
+        bias_table=r(table, heads),
     )
 
 
@@ -201,6 +210,41 @@ def work(kind, shape, heads, dtype):
 def bound(flops, nbytes, dtype):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_summary():
+    """One line per compiled kernel from the build's `-Xptxas -v` output:
+    registers, shared memory, stack and spills, names demangled by the
+    toolkit's cu++filt where it is found."""
+    entry = re.compile(r"Compiling entry function '(\S+)'")
+    spill = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+    used = re.compile(r"Used (\d+) registers")
+    smem = re.compile(r"(\d+) bytes smem")
+    rows = []
+    for lib, text in sorted(kernels.BUILD_LOG.items()):
+        name = stack = None
+        for line in text.splitlines():
+            if m := entry.search(line):
+                name, stack = m.group(1), None
+            elif (m := spill.search(line)) and name:
+                stack = m.groups()
+            elif (m := used.search(line)) and name:
+                sm = smem.search(line)
+                rows.append((lib, name, m.group(1), sm.group(1) if sm else "0",
+                             stack or ("?",) * 3))
+                name = None
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    names = [r[1] for r in rows]
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = out
+    if not rows:
+        log("  no ptxas report: the libraries were built without their nvcc log")
+    for (lib, _, regs, smem, (stack, st, ld)), name in zip(rows, names):
+        log(f"  {lib}: {name[:110]}: {regs} registers, {smem} B static smem, "
+            f"{stack} B stack, spills {st}/{ld} B (stores/loads)")
 
 
 def phase_kernels(dev):
@@ -507,6 +551,7 @@ def phase_backward(dev):
     check_grads("attention_bwd f32 [2, 6, 6, 6, 32] shift (2, 2, 2)", "attention_bwd",
                 fused_window_attention_bwd(*attn),
                 fused_window_attention_bwd_plain(*attn), torch.float32)
+    phase_other_shapes(dev, gen)
     for kind, s in summary.items():
         s["bound_by"] = ("operations" if s["flops"] / PEAK_FLOPS[bf16]
                          >= s["bytes"] / PEAK_BYTES else "bytes")
@@ -515,6 +560,61 @@ def phase_backward(dev):
             f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
             f"{100 * s['bound_ms'] / s['ms']:.2f}% of bound")
     return summary
+
+
+# bf16 shapes off the swin_b path (shape, heads, window, shift): 128-token
+# windows and 128-wide heads run the general tensor-core attention, 64-wide
+# heads the 64-token kernels at their widest, hd 12 the element-wise staging
+OTHER_SHAPES = (
+    ((2, 8, 8, 12, 64), 2, (4, 4, 8), (2, 2, 4)),
+    ((2, 8, 8, 8, 256), 4, (4, 4, 8), (0, 0, 0)),
+    ((2, 8, 8, 8, 256), 4, (4, 4, 4), (2, 2, 2)),
+    ((2, 8, 8, 8, 512), 4, (4, 4, 4), (2, 2, 2)),
+    ((2, 6, 6, 10, 48), 4, (4, 4, 8), (2, 2, 4)),
+)
+
+
+def phase_other_shapes(dev, gen):
+    """Each kernel forward and backward against its plain version at
+    OTHER_SHAPES (bf16, phase 3 and 6 tolerances), each backward called
+    twice with bitwise equal results, and the CUDA-event medians of kernel
+    and plain version."""
+    bf16 = torch.bfloat16
+    for shape, heads, window, shift in OTHER_SHAPES:
+        c = shape[-1]
+        w = block_weights(c, heads, gen, dev, torch.float32, window)
+        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        keep = torch.tensor([[1.25, 0.0], [0.0, 1.25]], device=dev)
+        tag = f"{list(shape)} heads {heads} window {window} shift {shift} bf16"
+        block = (x, *block_args(w), keep, window, shift, heads, 1e-5)
+        attn = (x, w["qkv_weight"].to(bf16), w["qkv_bias"], w["proj_weight"].to(bf16),
+                w["proj_bias"], w["bias_table"], window, shift, heads)
+        block_b = (x, *block_args(w), keep, dy, window, shift, heads, 1e-5)
+        attn_b = (*attn[:4], w["bias_table"], dy, window, shift, heads)
+        for kind, fn, plain_fn, args in (
+                ("block", fused_swin_block, fused_swin_block_plain, block),
+                ("attention", fused_window_attention, fused_window_attention_plain, attn),
+                ("block_bwd", fused_swin_block_bwd, fused_swin_block_bwd_plain, block_b),
+                ("attention_bwd", fused_window_attention_bwd,
+                 fused_window_attention_bwd_plain, attn_b)):
+            first = fn(*args)
+            if kind.endswith("bwd"):
+                check_grads(f"{kind} {tag}", kind, first, plain_fn(*args), bf16)
+                second = fn(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    raise AssertionError(f"{kind} {tag}: two calls differ")
+                del second
+            else:
+                check_close(f"{kind} {tag}", first, plain_fn(*args), bf16)
+            del first
+            ms = time_ms(lambda: fn(*args), reps=5, warmup=1)
+            plain_ms = time_ms(lambda: plain_fn(*args), reps=5, warmup=1)
+            log(f"  {kind} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                + (", two calls bitwise equal" if kind.endswith("bwd") else ""))
+        del x, dy, w, block, attn, block_b, attn_b
+        torch.cuda.empty_cache()
 
 
 def reset_launches():
@@ -575,7 +675,9 @@ def phase_train(dev, tmp, smi):
 def step_breakdown(dev):
     """CUDA-event times (ms) of the parts of one swin_b 160^3 batch-8 train
     step on the device's timeline, medians of 5 steps after a warm-up:
-    forward with the loss, backward, clip + AdamW."""
+    forward with the loss, backward, clip + AdamW; and the peak of allocated
+    device memory within each part (GiB, last step), which says which part
+    sets the step's peak."""
     cfg = swin_b_cfg()
     model = init_weights(SwinMAE3D(cfg, device=dev), seed=0)
     opt = optim.make_optimizer(model.parameters(), TrainConfig())
@@ -585,26 +687,36 @@ def step_breakdown(dev):
     grids = torch.rand((TRAIN_BATCH, t, t, t, 64, 4), generator=gen, device=dev)
     sizes = torch.full((TRAIN_BATCH, 3), RES, device=dev)
     parts = {"forward+loss": [], "backward": [], "clip+adamw": []}
+    peaks = {}
+
+    def part_peak(k):  # allocation is on the host, so no sync is needed
+        peaks[k] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
     for rep in range(6):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.reset_peak_memory_stats()
         ev[0].record()
         pred, mask = model(grids, False, generator=gen, patched_pred=True,
                            droppath_generator=gen)
         loss, _ = mae_loss(pred, grids, mask, sizes, cfg)
         ev[1].record()
+        part_peak("forward+loss")
         opt.zero_grad(set_to_none=True)
         loss.backward()
         ev[2].record()
+        part_peak("backward")
         optim.clip_with_nonfinite_guard([p.grad for p in model.parameters()], 0.1)
         opt.step()
         ev[3].record()
+        part_peak("clip+adamw")
         ev[3].synchronize()
         if rep:
             for i, k in enumerate(parts):
                 parts[k].append(ev[i].elapsed_time(ev[i + 1]))
     del model, opt
     torch.cuda.empty_cache()
-    return {k: statistics.median(v) for k, v in parts.items()}
+    return {k: statistics.median(v) for k, v in parts.items()}, peaks
 
 
 def param_group(name: str) -> str:
@@ -730,6 +842,60 @@ def phase_grads(dev, gelu):
     return launches
 
 
+def phase_profile(dev):
+    """torch.profiler (CPU and CUDA activities) over one block forward and
+    one block backward call at stage 0 and at stage 2, batch 8, unshifted
+    (phase 6's shapes): device time per kernel name, sorted, with launch
+    counts and the sum, as the sub-launch breakdown of each call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for stage in (0, 2):
+        g, c, heads = STAGES[stage]
+        shape = (TRAIN_BATCH, g, g, g, c)
+        w = block_weights(c, heads, gen, dev, torch.float32)
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        keep = train_keep(TRAIN_BATCH, dev)
+        block = (x, *block_args(w), keep)
+        calls = {
+            "forward": lambda: fused_swin_block(*block, (4, 4, 4), (0, 0, 0), heads, 1e-5),
+            "backward": lambda: fused_swin_block_bwd(*block, dy, (4, 4, 4), (0, 0, 0),
+                                                     heads, 1e-5),
+        }
+        for what, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            extra_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+            rows = []
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA:
+                    continue  # CPU ops (aten::*) repeat their kernels' device time
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(e, "self_cuda_time_total", 0)
+                if us > 0:
+                    rows.append((us / 1e3, e.count, e.key))
+            rows.sort(reverse=True)
+            total = sum(r[0] for r in rows)
+            log(f"  block {what} stage{stage} {list(shape)}: {len(rows)} kernel names, "
+                f"{sum(r[1] for r in rows)} launches, device time {total:.4f} ms, "
+                f"memory allocated during the call {extra_gib:.4f} GiB (outputs and "
+                "scratch)")
+            if not rows:
+                log("  torch.profiler recorded no device time for these kernels")
+            for ms, count, key in rows:
+                log(f"    {ms:9.4f} ms  {100 * ms / max(total, 1e-9):5.1f}%  x{count:<3d} {key[:120]}")
+        del x, dy, w, block, calls
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -744,7 +910,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = kernels.build_all()
-    log(f"[2] build: {build_s:.1f} s (nvcc, one process per source, sm_90a)")
+    log(f"[2] build: {build_s:.1f} s (nvcc, one process per source, sm_90a"
+        + ("; every library was already built, its ptxas report read back)"
+           if build_s == 0 else ")"))
+    ptxas_summary()
 
     log("[3] kernels vs plain versions (swin_b 160^3 stage shapes, batch 1, 2 and 8)")
     by_batch = phase_kernels(dev)
@@ -782,10 +951,11 @@ def main() -> int:
         f"{TRAIN_STEPS} steps, then eval from the checkpoint and the benchmark")
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, bench = phase_train(dev, tmp, smi)
-    parts = step_breakdown(dev)
+    parts, peaks = step_breakdown(dev)
     log(f"  train step breakdown at batch {TRAIN_BATCH} (ms, device timeline): "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-        + f"; total {sum(parts.values()):.3f}")
+        + f"; total {sum(parts.values()):.3f}; peak memory per part (GiB): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()))
 
     log("[8] gradients vs the plain composition (tanh, batch 2, float32 and bf16)")
     phase_grads(dev, "tanh")
@@ -794,7 +964,10 @@ def main() -> int:
         "float32 and bf16)")
     erf_train_launches = phase_grads(dev, "erf")
 
-    log(f"[10] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log(f"[10] profile: block forward and backward at stage 0 and 2, batch {TRAIN_BATCH}")
+    phase_profile(dev)
+
+    log(f"[11] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

@@ -11,17 +11,16 @@
 // scaled T(q); T(dqkv) feeds dWqkv and dx; bias and logit sums are float32.
 //
 //   1. gather_rows:  x and dy into window order (pad rows zero) -> h, dyw
-//   2. gemm EPI_QKV and window_attn: recompute qkv and o
-//   3. do = dyw Wp; dWp = dyw^T o; dbp = column sums of dyw
-//   4. window_attn_bwd: dqkv and dlogit per (window group, head)
-//   5. dbqkv = column sums of dqkv; dWqkv = T(dqkv)^T h;
-//      dx = T(dqkv) Wqkv, scattered back through unpartition, un-roll, crop
-// Weight, bias and logit sums are split-row partials plus a fixed-order sum
-// (no atomics: deterministic).
+//   2. qkv product and tensor-core attention: recompute qkv and o
+//   3. do = T(dyw Wp); dWp = dyw^T o; dbp = column sums of dyw
+//   4. tensor-core attention backward: T(dqkv), dbqkv and dlogit partials
+//   5. dWqkv = T(dqkv)^T h; dx = T(dqkv) Wqkv, scattered back through
+//      unpartition, un-roll and crop
 // What bounds it on the H100: ~24 C^2 + 12 N C FLOPs per token against ~6 C
-// bytes of x, dy and dx: bound by operations. This first version stages
-// h, qkv, o and the float32 row gradients through device memory and runs the
-// attention on FMA units, far below that bound.
+// bytes of x, dy and dx: by operations. It shares the building blocks of
+// the block backward (swin_common.cuh): every product on the TMA + wgmma
+// core, the attention on mma.sync, every operand in T; weight, bias and
+// logit sums are split partials plus a fixed-order sum (deterministic).
 #include "swin_common.cuh"
 
 using namespace swin;
@@ -33,8 +32,8 @@ struct Dims {
 
 template <typename T>
 struct Work {
-  T *h, *qkv, *o, *dyw;
-  float *dO, *dqkv, *part;
+  T *h, *qkv, *o, *dyw, *dO, *dqkv;
+  float *part, *tmp;
 };
 
 template <typename T>
@@ -46,14 +45,15 @@ static size_t carve(const Dims& d, char* base, Work<T>& w) {
   w.qkv = cv.take<T>(M * 3 * C);
   w.o = cv.take<T>(M * C);
   w.dyw = cv.take<T>(M * C);
-  w.dO = cv.take<float>(M * C);
-  w.dqkv = cv.take<float>(M * 3 * C);
-  long long part = (long long)colsum_parts(M) * 3 * C;
-  long long wg = (long long)wgrad_splits(M) * 3 * C * C;
-  long long ab = attn_bwd_part_floats(g, d.heads);
-  part = part > wg ? part : wg;
+  w.dO = cv.take<T>(M * C);
+  w.dqkv = cv.take<T>(M * 3 * C);
+  long long part = (long long)wgrad_splits<T>(M, 3 * C, C) * 3 * C * C;
+  long long wp = (long long)wgrad_splits<T>(M, C, C) * C * C;
+  long long ab = attn_bwd_part_floats<T>(g, d.C, d.heads);
+  part = part > wp ? part : wp;
   part = part > ab ? part : ab;
   w.part = cv.take<float>(part);
+  w.tmp = cv.take<float>(128 * 3 * C);  // first pass of launch_colsum
   return cv.used;
 }
 
@@ -63,7 +63,7 @@ static size_t carve(const Dims& d, char* base, Work<T>& w) {
     if (err_ != cudaSuccess) return (int)err_;    \
   } while (0)
 
-// ptrs: inputs x, dy, Wqkv, bqkv, Wp, rel_bias [heads, N, N]; then outputs
+// ptrs: inputs x, dy, Wqkv, bqkv, Wp, rel_table [(2w-1)^3, heads]; then outputs
 // dx, dWqkv, dbqkv, dWp, dbp, dlogit [heads, N, N]. Weights and their
 // gradients in torch Linear layout [out, in]; gradients are float32.
 template <typename T>
@@ -92,21 +92,20 @@ static int run(const Dims& d, float scale, void* const* p, void* ws,
   Epi e = {};
   e.g = g;
   e.bias = bqkv; e.scale = scale; e.n_scaled = C; e.out = w.qkv;
-  CK((launch_gemm<T, EPI_QKV>(w.h, Wqkv, M, 3 * C, C, e, st)));
+  CK((launch_gemm<T, FORM_NT, EPI_QKV>(w.h, Wqkv, M, 3 * C, C, 0, e, st)));
   CK(launch_attn<T>(w.qkv, rel, g, C, d.heads, w.o, st));
 
-  CK(launch_colsum<T>(w.dyw, M, C, w.part, dbp, st));
-  Epi2 e2 = {};
+  CK(launch_colsum<T>(w.dyw, M, C, w.tmp, dbp, st));
+  Epi e2 = {};
   e2.g = g;
   e2.out = w.dO;
-  CK((launch_gemm2<T, FORM_NN, E2_STORE>(w.dyw, Wp, M, C, C, 1, e2, st)));
+  CK((launch_gemm<T, FORM_NN, EPI_T>(w.dyw, Wp, M, C, C, 0, e2, st)));
   CK((weight_grad<T>(w.dyw, w.o, M, C, C, w.part, dWp, st)));
-  CK(launch_attn_bwd<T>(w.qkv, w.dO, rel, g, C, d.heads, scale, w.dqkv, w.part,
-                        dlogit, st));
-  CK(launch_colsum<float>(w.dqkv, M, 3 * C, w.part, dbqkv, st));
+  CK(launch_attn_bwd<T>(w.qkv, w.dO, rel, g, C, d.heads, scale, w.dqkv, w.part, w.tmp,
+                        dlogit, dbqkv, st));
   CK((weight_grad<T>(w.dqkv, w.h, M, 3 * C, C, w.part, dWqkv, st)));
-  e2.out = nullptr; e2.out_t = dx;
-  CK((launch_gemm2<T, FORM_NN, E2_SCATTER>(w.dqkv, Wqkv, M, C, 3 * C, 1, e2, st)));
+  e2.out = dx;
+  CK((launch_gemm<T, FORM_NN, EPI_SCATTER_T>(w.dqkv, Wqkv, M, C, 3 * C, 0, e2, st)));
   return 0;
 }
 

@@ -13,138 +13,212 @@
 // the scaled T(q); T(dqkv) feeds dWqkv and dh1; bias, LayerNorm and logit
 // sums are of float32 values; dx is rounded to T last.
 //
-// Design: a chain of launches over window-order rows (swin_common.cuh):
-//   recompute  gather+LN1 -> h1; qkv GEMM; attention -> o; proj GEMM with the
-//              residual -> x1; LN2 -> h2; fc1 GEMM keeping f1 and g
-//   MLP        df2 = dout * keep_m; dg = T(df2) W2 with the GELU derivative
-//              -> df1; dh2 = T(df1) W1; LN2 backward -> dx1, dy_attn
-//   attention  do = T(dy_attn) Wp; per (window group, head) dq, dk, dv, dl;
-//              dh1 = T(dqkv) Wqkv; LN1 backward, scattered back through
-//              unpartition, un-roll and crop -> dx
-//   weights    every dW = T(D)^T T(H) as split-row partials plus a fixed-order
-//              sum; bias and LN sums as column partials plus a fixed-order
-//              sum (no atomics: deterministic).
-// What bounds it on the H100: the ~72 C^2 FLOPs per token (recompute and two
-// products per forward product) against ~C*6 bytes of x, dy and dx: bound by
-// operations. This first version stages every recomputed and gradient row
-// through device memory (~60 C bytes per token), reads its GEMM operands with
-// scalar loads and runs the attention on FMA units, so it runs far below
-// that bound; fusing the recompute into the gradient GEMMs is later work.
+// What bounds it on the H100: ~72 C^2 FLOPs per token (recompute and two
+// products per forward product) against x, dy and dx: by operations at every
+// stage when nothing but those crosses device memory. The TPU kernel keeps
+// the block in VMEM; a CTA cannot hold a block's weights (12 C^2 bf16), so
+// here the block is a chain of launches over window-order rows
+// (swin_common.cuh), and the design makes each link cheap:
+//   recompute  gather+LN1 -> h1; qkv product; tensor-core attention -> o;
+//              proj product with the residual -> x1; LN2 -> h2; fc1 product
+//              keeping f1 and g
+//   MLP        df2 = dout * keep_m -> T(df2) and db2 partials (one row pass);
+//              dg = T(df2) W2 with the GELU derivative in the epilogue ->
+//              T(df1) and db1 partials; dh2 = T(df1) W1; LN2 backward ->
+//              dx1, T(dy_attn) and the dln2 / dbp partials
+//   attention  do = T(dy_attn) Wp -> T(do); tensor-core backward -> T(dqkv)
+//              with the dbqkv and dlogit partials; dh1 = T(dqkv) Wqkv; LN1
+//              backward, scattered back through unpartition, un-roll and
+//              crop -> dx, with the dln1 partials
+//   weights    every dW = T(D)^T T(H) straight from the bf16 rows (wgmma
+//              reads them MN-major): split-row partials plus a fixed-order
+//              sum.
+// Every product runs on the TMA + wgmma core; every operand crosses device
+// memory once, in T, rounded by the epilogue that produced it (the JAX
+// `.astype(d)`); float32 rows stay only where they are read row-wise (dh2,
+// then dh1 in the same buffer, and dx1): 8 C bytes per row. No float
+// atomics: every gradient is bitwise deterministic.
+// What is left of the gap: at C = 128 the recompute and the operands (58 C
+// bytes of scratch per row: 25 C bf16 values, 2 C float32) are written once
+// and read once or twice each; at C = 512 the products run at ~100 TFLOP/s,
+// a tenth of the tensor-core rate.
+#include <algorithm>
+
 #include "swin_common.cuh"
 
 using namespace swin;
 
-// df2[m] = dout[m] * keep_m (float32); dout is dy gathered into window
-// order, zero at pad rows. One warp per row.
-template <typename T>
+// Row passes: a grid of at most RP_CTAS CTAs of 8 warps, CTA c taking rows
+// [c per, (c + 1) per), one warp per row held in registers (load_row); column
+// sums of float32 values are kept per lane and written as one partial row
+// per CTA, added later in a fixed order.
+constexpr int RP_CTAS = 1056;  // 8 per SM
+
+inline int row_pass_ctas(int M) {
+  int c = (M + 63) / 64;
+  return c < RP_CTAS ? c : RP_CTAS;
+}
+
+// part[q][cta][c] = sum over the CTA's warps (in order) of acc[q].
+template <int NQ, int U>
+__device__ __forceinline__ void write_col_parts(const float (&acc)[NQ][U][4], int C, int P,
+                                                float* part) {
+  __shared__ __align__(16) float red[8][U * 128];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    store_row(red[w], C, lane, acc[q]);
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += 256) {
+      float s = 0.f;
+      for (int i = 0; i < 8; ++i) s += red[i][c];
+      part[((size_t)q * P + blockIdx.x) * C + c] = s;
+    }
+    __syncthreads();
+  }
+}
+
+template <int NQ, int U>
+__device__ __forceinline__ void zero_acc(float (&acc)[NQ][U][4]) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) zero_row(acc[q]);
+}
+
+// df2[m] = T(dout[m] * keep_m), dout = dy gathered into window order (zero
+// at pad rows); partials of the float32 df2 for db2.
+template <typename T, int U>
 __global__ void __launch_bounds__(256)
-dout_rows(const T* __restrict__ dy, const float* __restrict__ keep, Geom g,
-          int C, int M, float* __restrict__ df2) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const long long src = row_source(g, row);
-  const float km = keep[2 * (row / (g.nW * g.N)) + 1];
-  float* dst = df2 + (size_t)row * C;
-  for (int c = lane; c < C; c += 32)
-    dst[c] = src < 0 ? 0.f : to_f(dy[(size_t)src * C + c]) * km;
+dout_rows(const T* __restrict__ dy, const float* __restrict__ keep, Geom g, int C, int M,
+          int per, T* __restrict__ df2, float* __restrict__ part) {
+  float acc[1][U][4];
+  zero_acc(acc);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * per, r1 = r0 + per < M ? r0 + per : M;
+  for (int row = r0 + w; row < r1; row += 8) {
+    const long long src = row_source(g, row);
+    const float km = keep[2 * (row / (g.nW * g.N)) + 1];
+    float v[U][4];
+    if (src < 0) {
+      zero_row(v);
+    } else {
+      load_row(dy + (size_t)src * C, C, lane, v);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[u][k] *= km;
+        acc[0][u][k] += v[u][k];
+      }
+    store_row(df2 + (size_t)row * C, C, lane, v);
+  }
+  write_col_parts(acc, C, gridDim.x, part);
 }
 
-// Mean, inverse deviation of one row: the forward's fast variance.
-template <typename T>
-__device__ __forceinline__ void ln_stats(const T* xr, int C, float eps, int lane,
-                                         float& mu, float& inv) {
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float v = to_f(xr[c]);
-    s += v;
-    s2 += v * v;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  mu = s / C;
-  inv = rsqrtf(s2 / C - mu * mu + eps);
-}
-
-// The two row means of the LayerNorm input gradient:
-// a = mean(dh * scale), b = mean(dh * scale * xhat).
-template <typename T>
-__device__ __forceinline__ void ln_bwd_means(const float* dh, const T* xr,
-                                             const float* scale, int C, float mu,
-                                             float inv, int lane, float& a,
-                                             float& b) {
-  a = 0.f;
-  b = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float xh = (to_f(xr[c]) - mu) * inv;
-    float dxh = dh[c] * scale[c];
-    a += dxh;
-    b += dxh * xh;
-  }
+// The LayerNorm input gradient of one row in registers, given the float32
+// output gradient dh, the input x and the scale: into dx (added), with
+// xhat for the scale gradient. Means a = mean(dh * scale),
+// b = mean(dh * scale * xhat).
+template <int U>
+__device__ __forceinline__ void ln_bwd_row(const float (&x)[U][4], const float (&dh)[U][4],
+                                           const float (&sc)[U][4], int C, float eps,
+                                           float (&xh)[U][4], float (&dx)[U][4]) {
+  float mu, inv;
+  row_stats(x, C, eps, mu, inv);
+  float a = 0.f, b = 0.f;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      xh[u][k] = (x[u][k] - mu) * inv;
+      const float dxh = dh[u][k] * sc[u][k];
+      a += dxh;
+      b += dxh * xh[u][k];
+    }
   a = warp_sum(a) / C;
   b = warp_sum(b) / C;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dx[u][k] += inv * (dh[u][k] * sc[u][k] - a - xh[u][k] * b);
 }
 
-// dx1 = dout + LN2'(dh2) and dy_attn = dx1 * keep_a, with xhat2 and inv2
-// recomputed from x1; t = dh2 * xhat2 for the LN2 scale gradient.
-template <typename T>
+// dx1 = dout + LN2'(dh2) (float32) and dya = T(dx1 * keep_a), with xhat2 and
+// inv2 recomputed from x1; partials of dh2 * xhat2 (dln2_scale), dh2
+// (dln2_bias) and dx1 * keep_a (dproj_bias).
+template <typename T, int U>
 __global__ void __launch_bounds__(256)
 ln2_bwd_rows(const float* __restrict__ dh2, const T* __restrict__ x1,
              const float* __restrict__ scale, const T* __restrict__ dy,
-             const float* __restrict__ keep, float eps, Geom g, int C, int M,
-             float* __restrict__ dx1, float* __restrict__ dya,
-             float* __restrict__ t) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const size_t base = (size_t)row * C;
-  const T* xr = x1 + base;
-  const float* dh = dh2 + base;
-  float mu, inv, a, b;
-  ln_stats(xr, C, eps, lane, mu, inv);
-  ln_bwd_means(dh, xr, scale, C, mu, inv, lane, a, b);
-  const long long src = row_source(g, row);
-  const float ka = keep[2 * (row / (g.nW * g.N))];
-  for (int c = lane; c < C; c += 32) {
-    float xh = (to_f(xr[c]) - mu) * inv;
-    float dxh = dh[c] * scale[c];
-    float dout = src < 0 ? 0.f : to_f(dy[(size_t)src * C + c]);
-    float v = dout + inv * (dxh - a - xh * b);
-    dx1[base + c] = v;
-    dya[base + c] = v * ka;
-    t[base + c] = dh[c] * xh;
+             const float* __restrict__ keep, float eps, Geom g, int C, int M, int per,
+             float* __restrict__ dx1, T* __restrict__ dya, float* __restrict__ part) {
+  float acc[3][U][4];
+  zero_acc(acc);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float sc[U][4];
+  load_row(scale, C, lane, sc);
+  const int r0 = blockIdx.x * per, r1 = r0 + per < M ? r0 + per : M;
+  for (int row = r0 + w; row < r1; row += 8) {
+    const size_t base = (size_t)row * C;
+    float x[U][4], dh[U][4], xh[U][4], v[U][4];
+    load_row(x1 + base, C, lane, x);
+    load_row(dh2 + base, C, lane, dh);
+    const long long src = row_source(g, row);
+    if (src < 0) {
+      zero_row(v);
+    } else {
+      load_row(dy + (size_t)src * C, C, lane, v);
+    }
+    ln_bwd_row(x, dh, sc, C, eps, xh, v);
+    store_row(dx1 + base, C, lane, v);
+    const float ka = keep[2 * (row / (g.nW * g.N))];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[0][u][k] += dh[u][k] * xh[u][k];
+        acc[1][u][k] += dh[u][k];
+        v[u][k] *= ka;
+        acc[2][u][k] += v[u][k];
+      }
+    store_row(dya + base, C, lane, v);
   }
+  write_col_parts(acc, C, gridDim.x, part);
 }
 
 // dx[src] = T(dx1 + LN1'(dh1)) with xhat1 and inv1 recomputed from x; pad
-// rows get dh1 = 0 (the vjp of the post-LN pad-row mask) and write nothing.
-// t = dh1 * xhat1 for the LN1 scale gradient.
-template <typename T>
+// rows take dh1 = 0 (the vjp of the post-LN pad-row mask) and write
+// nothing. Partials of dh1 * xhat1 (dln1_scale) and dh1 (dln1_bias).
+template <typename T, int U>
 __global__ void __launch_bounds__(256)
-ln1_bwd_rows(float* __restrict__ dh1, const T* __restrict__ x,
-             const float* __restrict__ scale, const float* __restrict__ dx1,
-             float eps, Geom g, int C, int M, float* __restrict__ t,
-             T* __restrict__ dx) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const size_t base = (size_t)row * C;
-  float* dh = dh1 + base;
-  const long long src = row_source(g, row);
-  if (src < 0) {
-    for (int c = lane; c < C; c += 32) {
-      dh[c] = 0.f;
-      t[base + c] = 0.f;
-    }
-    return;
+ln1_bwd_rows(const float* __restrict__ dh1, const T* __restrict__ x,
+             const float* __restrict__ scale, const float* __restrict__ dx1, float eps,
+             Geom g, int C, int M, int per, T* __restrict__ dx, float* __restrict__ part) {
+  float acc[2][U][4];
+  zero_acc(acc);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float sc[U][4];
+  load_row(scale, C, lane, sc);
+  const int r0 = blockIdx.x * per, r1 = r0 + per < M ? r0 + per : M;
+  for (int row = r0 + w; row < r1; row += 8) {
+    const long long src = row_source(g, row);
+    if (src < 0) continue;
+    const size_t base = (size_t)row * C;
+    float xr[U][4], dh[U][4], xh[U][4], v[U][4];
+    load_row(x + (size_t)src * C, C, lane, xr);
+    load_row(dh1 + base, C, lane, dh);
+    load_row(dx1 + base, C, lane, v);
+    ln_bwd_row(xr, dh, sc, C, eps, xh, v);
+    store_row(dx + (size_t)src * C, C, lane, v);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[0][u][k] += dh[u][k] * xh[u][k];
+        acc[1][u][k] += dh[u][k];
+      }
   }
-  const T* xr = x + (size_t)src * C;
-  float mu, inv, a, b;
-  ln_stats(xr, C, eps, lane, mu, inv);
-  ln_bwd_means(dh, xr, scale, C, mu, inv, lane, a, b);
-  for (int c = lane; c < C; c += 32) {
-    float xh = (to_f(xr[c]) - mu) * inv;
-    float dxh = dh[c] * scale[c];
-    dx[(size_t)src * C + c] = from_f<T>(dx1[base + c] + inv * (dxh - a - xh * b));
-    t[base + c] = dh[c] * xh;
-  }
+  write_col_parts(acc, C, gridDim.x, part);
 }
 
 // Dimensions: B, G0, G1, G2, C, F, heads, w0, w1, w2, s0, s1, s2 (effective shift).
@@ -154,14 +228,14 @@ struct Dims {
 
 template <typename T>
 struct Work {
-  T *h1, *qkv, *o, *x1, *h2, *f1, *g;
-  float *df2, *df1, *dh2, *dx1, *dya, *dO, *dqkv, *dh1, *t, *part;
+  T *h1, *qkv, *o, *x1, *h2, *f1, *g, *df2, *df1, *dya, *dO, *dqkv;
+  float *dh, *dx1, *part, *tmp;
 };
 
 template <typename T>
 static size_t carve(const Dims& d, char* base, Work<T>& w) {
   Geom g = make_geom(d.B, d.G0, d.G1, d.G2, d.w0, d.w1, d.w2, d.s0, d.s1, d.s2);
-  const size_t M = (size_t)d.B * g.nW * g.N, C = d.C, F = d.F;
+  const long long M = (long long)d.B * g.nW * g.N, C = d.C, F = d.F;
   Carve cv{base};
   w.h1 = cv.take<T>(M * C);
   w.qkv = cv.take<T>(M * 3 * C);
@@ -170,21 +244,24 @@ static size_t carve(const Dims& d, char* base, Work<T>& w) {
   w.h2 = cv.take<T>(M * C);
   w.f1 = cv.take<T>(M * F);
   w.g = cv.take<T>(M * F);
-  w.df2 = cv.take<float>(M * C);
-  w.df1 = cv.take<float>(M * F);
-  w.dh2 = cv.take<float>(M * C);
+  w.df2 = cv.take<T>(M * C);
+  w.df1 = cv.take<T>(M * F);
+  w.dya = cv.take<T>(M * C);
+  w.dO = cv.take<T>(M * C);
+  w.dqkv = cv.take<T>(M * 3 * C);
+  w.dh = cv.take<float>(M * C);
   w.dx1 = cv.take<float>(M * C);
-  w.dya = cv.take<float>(M * C);
-  w.dO = cv.take<float>(M * C);
-  w.dqkv = cv.take<float>(M * 3 * C);
-  w.dh1 = cv.take<float>(M * C);
-  w.t = cv.take<float>(M * C);
-  long long part = (long long)colsum_parts(M) * (3 * C > F ? 3 * C : F);
-  long long wg = (long long)wgrad_splits(M) * (3 * C * C > F * C ? 3 * C * C : F * C);
-  long long ab = attn_bwd_part_floats(g, d.heads);
-  part = part > wg ? part : wg;
-  part = part > ab ? part : ab;
+  // partials: row passes (3 sums), the dgelu product's column sums, weight
+  // gradient splits and the attention backward, one at a time
+  const long long tile = gemm_row_tile<T>();
+  long long part = 3LL * row_pass_ctas((int)M) * C;
+  part = std::max(part, (M + tile - 1) / tile * F);
+  part = std::max(part, (long long)wgrad_splits<T>(M, F, C) * F * C);
+  part = std::max(part, (long long)wgrad_splits<T>(M, 3 * C, C) * 3 * C * C);
+  part = std::max(part, (long long)wgrad_splits<T>(M, C, C) * C * C);
+  part = std::max(part, attn_bwd_part_floats<T>(g, d.C, d.heads));
   w.part = cv.take<float>(part);
+  w.tmp = cv.take<float>(128 * std::max(3 * C, F));  // first pass of launch_colsum
   return cv.used;
 }
 
@@ -195,7 +272,7 @@ static size_t carve(const Dims& d, char* base, Work<T>& w) {
   } while (0)
 
 // ptrs: inputs x, dy, ln1_s, ln1_b, Wqkv, bqkv, Wp, bp, ln2_s, ln2_b, W1, b1,
-// W2, b2, rel_bias [heads, N, N], keep [B, 2]; then outputs dx, dln1_s,
+// W2, b2, rel_table [(2w-1)^3, heads], keep [B, 2]; then outputs dx, dln1_s,
 // dln1_b, dWqkv, dbqkv, dWp, dbp, dln2_s, dln2_b, dW1, db1, dW2, db2,
 // dlogit [heads, N, N]. Weights and their gradients are in torch Linear
 // layout [out, in]; gradients are float32.
@@ -205,6 +282,8 @@ static int run(const Dims& d, float eps, float scale, void* const* p, void* ws,
   Geom g = make_geom(d.B, d.G0, d.G1, d.G2, d.w0, d.w1, d.w2, d.s0, d.s1, d.s2);
   const int M = d.B * g.nW * g.N, C = d.C, F = d.F;
   const int rows_grid = (M + 7) / 8;
+  const int rp = row_pass_ctas(M), rp_per = (M + rp - 1) / rp;
+  const int tiles = (M + gemm_row_tile<T>() - 1) / gemm_row_tile<T>();
   Work<T> w;
   carve<T>(d, (char*)ws, w);
   const T* x = (const T*)p[0];
@@ -229,64 +308,81 @@ static int run(const Dims& d, float eps, float scale, void* const* p, void* ws,
   float *dW1 = (float*)p[25], *db1 = (float*)p[26];
   float *dW2 = (float*)p[27], *db2 = (float*)p[28];
   float* dlogit = (float*)p[29];
+  // the q-th column sum of a row pass
+  auto row_sum = [&](int q, float* out) {
+    return launch_colsum<float>(w.part + (size_t)q * rp * C, rp, C, w.tmp, out, st);
+  };
 
   // ---- recompute the forward ----
-  gather_rows<T, true><<<rows_grid, 256, 0, st>>>(x, ln1_s, ln1_b, eps, g, C, M, w.h1);
-  CK(cudaGetLastError());
+  CK(with_row_u(C, [&](auto u) {
+    gather_rows<T, true, decltype(u)::value><<<rows_grid, 256, 0, st>>>(x, ln1_s, ln1_b, eps,
+                                                                       g, C, M, w.h1);
+    return cudaGetLastError();
+  }));
   Epi e = {};
   e.g = g;
   e.keep = keep;
   e.bias = bqkv; e.scale = scale; e.n_scaled = C; e.out = w.qkv;
-  CK((launch_gemm<T, EPI_QKV>(w.h1, Wqkv, M, 3 * C, C, e, st)));
+  CK((launch_gemm<T, FORM_NT, EPI_QKV>(w.h1, Wqkv, M, 3 * C, C, 0, e, st)));
   CK(launch_attn<T>(w.qkv, rel, g, C, d.heads, w.o, st));
   e.bias = bp; e.x = x; e.out = w.x1;
-  CK((launch_gemm<T, EPI_PROJ_RESID>(w.o, Wp, M, C, C, e, st)));
-  ln_rows<T><<<rows_grid, 256, 0, st>>>(w.x1, ln2_s, ln2_b, eps, C, M, w.h2);
-  CK(cudaGetLastError());
+  CK((launch_gemm<T, FORM_NT, EPI_PROJ_RESID>(w.o, Wp, M, C, C, 0, e, st)));
+  CK(with_row_u(C, [&](auto u) {
+    ln_rows<T, decltype(u)::value><<<rows_grid, 256, 0, st>>>(w.x1, ln2_s, ln2_b, eps, C, M,
+                                                             w.h2);
+    return cudaGetLastError();
+  }));
   e.bias = b1; e.out = w.g; e.aux = w.f1;
-  CK((launch_gemm<T, EPI_FC1_BOTH>(w.h2, W1, M, F, C, e, st)));
+  CK((launch_gemm<T, FORM_NT, EPI_FC1_BOTH>(w.h2, W1, M, F, C, 0, e, st)));
 
   // ---- MLP branch: out = x1 + f2 * keep_m ----
-  dout_rows<T><<<rows_grid, 256, 0, st>>>(dy, keep, g, C, M, w.df2);
-  CK(cudaGetLastError());
-  CK(launch_colsum<float>(w.df2, M, C, w.part, db2, st));
-  Epi2 e2 = {};
+  CK(with_row_u(C, [&](auto u) {
+    dout_rows<T, decltype(u)::value><<<rp, 256, 0, st>>>(dy, keep, g, C, M, rp_per, w.df2,
+                                                        w.part);
+    return cudaGetLastError();
+  }));
+  CK(row_sum(0, db2));
+  Epi e2 = {};
   e2.g = g;
-  e2.out = w.df1; e2.aux = w.f1;
-  CK((launch_gemm2<T, FORM_NN, E2_GELU_GRAD>(w.df2, W2, M, F, C, 1, e2, st)));
+  e2.out = w.df1; e2.aux = w.f1; e2.colpart = w.part;
+  CK((launch_gemm<T, FORM_NN, EPI_DGELU>(w.df2, W2, M, F, C, 0, e2, st)));
+  CK(launch_colsum<float>(w.part, tiles, F, w.tmp, db1, st));
   CK((weight_grad<T>(w.df2, w.g, M, C, F, w.part, dW2, st)));
-  CK(launch_colsum<float>(w.df1, M, F, w.part, db1, st));
-  e2.out = w.dh2; e2.aux = nullptr;
-  CK((launch_gemm2<T, FORM_NN, E2_STORE>(w.df1, W1, M, C, F, 1, e2, st)));
+  e2 = Epi{};
+  e2.out = w.dh;
+  CK((launch_gemm<T, FORM_NN, EPI_F32>(w.df1, W1, M, C, F, 0, e2, st)));
   CK((weight_grad<T>(w.df1, w.h2, M, F, C, w.part, dW1, st)));
-  ln2_bwd_rows<T><<<rows_grid, 256, 0, st>>>(w.dh2, w.x1, ln2_s, dy, keep, eps, g,
-                                              C, M, w.dx1, w.dya, w.t);
-  CK(cudaGetLastError());
-  CK(launch_colsum<float>(w.t, M, C, w.part, dln2_s, st));
-  CK(launch_colsum<float>(w.dh2, M, C, w.part, dln2_b, st));
+  CK(with_row_u(C, [&](auto u) {
+    ln2_bwd_rows<T, decltype(u)::value><<<rp, 256, 0, st>>>(
+        w.dh, w.x1, ln2_s, dy, keep, eps, g, C, M, rp_per, w.dx1, w.dya, w.part);
+    return cudaGetLastError();
+  }));
+  CK(row_sum(0, dln2_s));
+  CK(row_sum(1, dln2_b));
+  CK(row_sum(2, dbp));
 
   // ---- attention branch: x1 = x + y * keep_a ----
-  CK(launch_colsum<float>(w.dya, M, C, w.part, dbp, st));
   e2.out = w.dO;
-  CK((launch_gemm2<T, FORM_NN, E2_STORE>(w.dya, Wp, M, C, C, 1, e2, st)));
+  CK((launch_gemm<T, FORM_NN, EPI_T>(w.dya, Wp, M, C, C, 0, e2, st)));
   CK((weight_grad<T>(w.dya, w.o, M, C, C, w.part, dWp, st)));
-  CK(launch_attn_bwd<T>(w.qkv, w.dO, rel, g, C, d.heads, scale, w.dqkv, w.part,
-                        dlogit, st));
-  CK(launch_colsum<float>(w.dqkv, M, 3 * C, w.part, dbqkv, st));
+  CK(launch_attn_bwd<T>(w.qkv, w.dO, rel, g, C, d.heads, scale, w.dqkv, w.part, w.tmp,
+                        dlogit, dbqkv, st));
   CK((weight_grad<T>(w.dqkv, w.h1, M, 3 * C, C, w.part, dWqkv, st)));
-  e2.out = w.dh1;
-  CK((launch_gemm2<T, FORM_NN, E2_STORE>(w.dqkv, Wqkv, M, C, 3 * C, 1, e2, st)));
-  ln1_bwd_rows<T><<<rows_grid, 256, 0, st>>>(w.dh1, x, ln1_s, w.dx1, eps, g, C, M,
-                                              w.t, dx);
-  CK(cudaGetLastError());
-  CK(launch_colsum<float>(w.t, M, C, w.part, dln1_s, st));
-  CK(launch_colsum<float>(w.dh1, M, C, w.part, dln1_b, st));
+  e2.out = w.dh;
+  CK((launch_gemm<T, FORM_NN, EPI_F32>(w.dqkv, Wqkv, M, C, 3 * C, 0, e2, st)));
+  CK(with_row_u(C, [&](auto u) {
+    ln1_bwd_rows<T, decltype(u)::value><<<rp, 256, 0, st>>>(w.dh, x, ln1_s, w.dx1, eps, g, C,
+                                                           M, rp_per, dx, w.part);
+    return cudaGetLastError();
+  }));
+  CK(row_sum(0, dln1_s));
+  CK(row_sum(1, dln1_b));
   return 0;
 }
 
 static bool read_dims(const int* v, Dims& d) {
   d = Dims{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11], v[12]};
-  return d.C % 8 == 0 && d.F % 8 == 0 && d.C % d.heads == 0;
+  return d.C % 8 == 0 && d.F % 8 == 0 && d.C % d.heads == 0 && d.C <= 512;
 }
 
 // Bytes of scratch that fused_swin_block_bwd needs (0: unsupported).
@@ -311,5 +407,21 @@ extern "C" int fused_swin_block_bwd(int dtype, const int* dims, float eps,
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) return run<bf16>(d, eps, scale, ptrs, workspace, st);
   if (dtype == 0) return run<float>(d, eps, scale, ptrs, workspace, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Test hook, not part of the block's interface: one bf16 product into a
+// float32 [M, N] output, so that the card tests reach the GEMM core's ragged
+// edges directly. form: 0 = A W^T (A [M, K], W [N, K]), 1 = A W (W [K, N]),
+// 2 = A^T B (A [K, M], B [K, N]). Returns a cudaError_t code.
+extern "C" int gemm_core_for_tests(int form, int M, int N, long long K, const void* A,
+                              const void* B, float* out, void* stream) {
+  Epi e = {};
+  e.out = out;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16 *a = (const bf16*)A, *b = (const bf16*)B;
+  if (form == 0) return (int)launch_gemm<bf16, FORM_NT, EPI_F32>(a, b, M, N, K, 0, e, st);
+  if (form == 1) return (int)launch_gemm<bf16, FORM_NN, EPI_F32>(a, b, M, N, K, 0, e, st);
+  if (form == 2) return (int)launch_gemm<bf16, FORM_TN, EPI_F32>(a, b, M, N, K, 0, e, st);
   return (int)cudaErrorInvalidValue;
 }

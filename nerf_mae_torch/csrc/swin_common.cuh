@@ -2,19 +2,41 @@
 // kernels: the forwards (fused_block.cu, fused_attention.cu) and the
 // backwards (fused_block_bwd.cu, fused_attention_bwd.cu).
 //
+// They replace the VMEM-resident bodies of the TPU kernels in
+// nerf_mae_tpu/ops/pallas_block.py (_fused_block_kernel,
+// _fused_block_bwd_kernel) and nerf_mae_tpu/ops/pallas_attention.py
+// (_fused_window_attn_kernel, _fused_window_attn_bwd_kernel). A TPU kernel
+// keeps a whole block (12 C^2 bf16 weights, 6 MiB at C = 512) and its
+// weight gradients in VMEM across a sequential grid; a Hopper CTA has 227 KB
+// of shared memory and runs beside 131 others in no order, so on the H100 a
+// block is a chain of launches over window-order rows, and what bounds it is
+// the rate of its matrix products and the bytes each link moves through
+// device memory. The design answers both:
+//   - swin_gemm.cuh: every bf16 product runs on a TMA + mbarrier + wgmma
+//     core (3-stage ring, one producer warp, two consumer warpgroups) with
+//     the epilogue applied from the accumulator registers; float32 (dtype 0)
+//     keeps an FMA-unit GEMM with the same epilogues.
+//   - swin_attn.cuh: window attention on the tensor cores (mma.sync
+//     m16n8k16), forward and backward, softmax in float32 registers.
+//   - this file: geometry (pad, roll and partition as index arithmetic),
+//     LayerNorm rows, the fused epilogues, and the fixed-order reductions
+//     that replace the TPU's resident gradient sums (no float atomics: every
+//     gradient is bitwise deterministic).
+//
 // Layouts: activations are channel-last; inside a block the tokens travel in
 // window order, row r = ((b * nW + window) * N + token), so that one window's
 // N tokens are N consecutive rows. Padding, the cyclic shift and the window
 // partition are index arithmetic on the way in (gather_rows) and on the way
-// out (the scattering GEMM epilogues); no padded or rolled copy is made.
-// Weights are in torch Linear layout [out, in], so every product is
-// C[m, n] = sum_k A[m, k] * W[n, k].
+// out (the scattering epilogues); no padded or rolled copy is made. Weights
+// are in torch Linear layout [out, in].
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace swin {
 
@@ -32,6 +54,14 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
 // v rounded to T and read back: one rounding point of the JAX kernel.
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f(from_f<T>(v));
+}
+
+// Two neighbouring values rounded to T and stored with one access.
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *(__nv_bfloat162*)p = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *(float2*)p = make_float2(a, b);
 }
 
 // Geometry of one block: original grid G, padded grid P, window w,
@@ -101,30 +131,111 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One warp: dst = T(LayerNorm(src)) in float32 with the fast variance
-// E[x^2] - mu^2 (flax / _ln_fwd), ((x - mu) * inv) * scale + bias.
-template <typename T>
+// Row passes hold a row in registers, one warp per row: lane l takes the
+// 4-column groups c = 128 u + 4 l, u < U, with U = row_u(C) (C <= 512), so
+// that a narrow row costs no registers for the columns it does not have.
+inline int row_u(int C) { return C <= 128 ? 1 : (C <= 256 ? 2 : 4); }
+
+// Calls f(std::integral_constant<int, U>()) with U = row_u(C).
+template <typename F> inline cudaError_t with_row_u(int C, F f) {
+  if (C <= 128) return f(std::integral_constant<int, 1>());
+  if (C <= 256) return f(std::integral_constant<int, 2>());
+  return f(std::integral_constant<int, 4>());
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 r = *(const uint2*)p;
+  const __nv_bfloat162 a = *(const __nv_bfloat162*)&r.x, b = *(const __nv_bfloat162*)&r.y;
+  v[0] = __low2float(a);
+  v[1] = __high2float(a);
+  v[2] = __low2float(b);
+  v[3] = __high2float(b);
+}
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 r = *(const float4*)p;
+  v[0] = r.x;
+  v[1] = r.y;
+  v[2] = r.z;
+  v[3] = r.w;
+}
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  uint2 r;
+  *(__nv_bfloat162*)&r.x = __floats2bfloat162_rn(v[0], v[1]);
+  *(__nv_bfloat162*)&r.y = __floats2bfloat162_rn(v[2], v[3]);
+  *(uint2*)p = r;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *(float4*)p = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <int U>
+__device__ __forceinline__ void zero_row(float (&v)[U][4]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0.f;
+}
+
+// A row of C values (T or float) into registers, zeros past C.
+template <int U, typename S>
+__device__ __forceinline__ void load_row(const S* row, int C, int lane, float (&v)[U][4]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = 128 * u + 4 * lane;
+    if (c < C) {
+      load4(row + c, v[u]);
+    } else {
+      v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0.f;
+    }
+  }
+}
+
+template <int U, typename S>
+__device__ __forceinline__ void store_row(S* row, int C, int lane, const float (&v)[U][4]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (128 * u + 4 * lane < C) store4(row + 128 * u + 4 * lane, v[u]);
+}
+
+// Mean and inverse deviation of a row in registers: the fast variance
+// E[x^2] - mu^2 of flax / _ln_fwd.
+template <int U>
+__device__ __forceinline__ void row_stats(const float (&v)[U][4], int C, float eps,
+                                          float& mu, float& inv) {
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s += v[u][k];
+      s2 += v[u][k] * v[u][k];
+    }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  mu = s / C;
+  inv = rsqrtf(s2 / C - mu * mu + eps);
+}
+
+// One warp: dst = T(LayerNorm(src)) in float32, ((x - mu) * inv) * scale + bias.
+template <int U, typename T>
 __device__ __forceinline__ void ln_row(const T* src, const float* scale,
                                        const float* bias, float eps, int C,
                                        T* dst, int lane) {
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    float v = to_f(src[c]);
-    s += v;
-    s2 += v * v;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  float mu = s / C;
-  float inv = rsqrtf(s2 / C - mu * mu + eps);
-  for (int c = lane; c < C; c += 32)
-    dst[c] = from_f<T>((to_f(src[c]) - mu) * inv * scale[c] + bias[c]);
+  float v[U][4], sc[U][4], bi[U][4];
+  load_row(src, C, lane, v);
+  load_row(scale, C, lane, sc);
+  load_row(bias, C, lane, bi);
+  float mu, inv;
+  row_stats(v, C, eps, mu, inv);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[u][k] = (v[u][k] - mu) * inv * sc[u][k] + bi[u][k];
+  store_row(dst, C, lane, v);
 }
 
 // Window-order gather, one warp per row: pad + roll + partition by index.
 // With LN the row is layer-normed; pad rows are written as zeros (the
 // post-LN pad-row mask of the JAX kernel, i.e. LN before the zero pad).
-template <typename T, bool LN>
+template <typename T, bool LN, int U = 1>
 __global__ void __launch_bounds__(256)
 gather_rows(const T* __restrict__ x, const float* __restrict__ scale,
             const float* __restrict__ bias, float eps, Geom g, int C, int M,
@@ -140,35 +251,75 @@ gather_rows(const T* __restrict__ x, const float* __restrict__ scale,
   }
   const T* xr = x + (size_t)src * C;
   if (LN) {
-    ln_row<T>(xr, scale, bias, eps, C, dst, lane);
+    ln_row<U>(xr, scale, bias, eps, C, dst, lane);
   } else {
     for (int c = lane; c < C; c += 32) dst[c] = xr[c];
   }
 }
 
 // Row-wise LayerNorm of a window-order buffer, one warp per row.
-template <typename T>
+template <typename T, int U>
 __global__ void __launch_bounds__(256)
 ln_rows(const T* __restrict__ x, const float* __restrict__ scale,
         const float* __restrict__ bias, float eps, int C, int M,
         T* __restrict__ out) {
   int row = blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= M) return;
-  ln_row<T>(x + (size_t)row * C, scale, bias, eps, C, out + (size_t)row * C,
+  ln_row<U>(x + (size_t)row * C, scale, bias, eps, C, out + (size_t)row * C,
             threadIdx.x % 32);
 }
 
+__device__ __forceinline__ float gelu_tanh(float x) {
+  // jax.nn.gelu(approximate=True), same operation order as _gelu_tanh
+  const float k0 = 0.7978845608028654f, c = 0.044715f;
+  float u = k0 * (x + c * x * x * x);
+  return 0.5f * x * (1.f + tanhf(u));
+}
+
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  // _gelu_tanh_grad of the JAX kernel, same operation order
+  const float k0 = 0.7978845608028654f, c = 0.044715f;
+  float u = k0 * (x + c * x * x * x);
+  float t = tanhf(u);
+  float du = k0 * (1.f + 3.f * c * x * x);
+  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du;
+}
+
 // ---------------------------------------------------------------------------
-// GEMM C[M, Nc] = A[M, K] W[Nc, K]^T with a fused epilogue.
+// Fused epilogues of the products C[m, n] (float32 accumulator acc). Each is
+// applied to two neighbouring columns (n even; every N is a multiple of 8).
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
+  // forward products C = A W^T
   EPI_QKV = 0,        // + bias (f32), q columns * scale, -> T
   EPI_PROJ_RESID,     // y = T(acc + b); x1 = T(x + T(y * T(keep_a)))
   EPI_FC1_GELU,       // f1 = T(T(acc) + T(b)); g = T(gelu_tanh(f1))
   EPI_FC2_RESID_OUT,  // f2 = T(T(acc) + T(b)); out[src] = T(x1 + T(f2 * T(keep_m)))
   EPI_PROJ_OUT,       // out[src] = T(acc + b)
   EPI_FC1_BOTH,       // as EPI_FC1_GELU, and f1 kept in aux (backward recompute)
+  // backward products
+  EPI_PART,           // out[z][m, n] = acc: split partials of a weight gradient
+  EPI_F32,            // out[m, n] = acc (float32 rows read row-wise later)
+  EPI_T,              // out[m, n] = T(acc): a product operand, rounded once
+  EPI_SCATTER_T,      // out[row_source(m), n] = T(acc); pad rows dropped
+  EPI_DGELU,          // d = acc * gelu'(aux[m, n]); out = T(d); column sums of d
+};
+
+template <int MODE> struct EpiTraits {
+  // reads row_source of its rows
+  static constexpr bool src = MODE == EPI_PROJ_RESID || MODE == EPI_FC2_RESID_OUT ||
+                              MODE == EPI_PROJ_OUT || MODE == EPI_SCATTER_T;
+  // reads the sample of its rows (droppath factors)
+  static constexpr bool sample = MODE == EPI_PROJ_RESID || MODE == EPI_FC2_RESID_OUT;
+  // writes row m to row row_source(m) of its output; pad rows dropped
+  static constexpr bool scatter = MODE == EPI_FC2_RESID_OUT || MODE == EPI_PROJ_OUT ||
+                                  MODE == EPI_SCATTER_T;
+  // outputs: out (and aux), float32 or T
+  static constexpr int planes = MODE == EPI_FC1_BOTH ? 2 : 1;
+  static constexpr bool f32 = MODE == EPI_PART || MODE == EPI_F32;
+  // writes per-row-tile column partials of the float32 values it produces
+  static constexpr bool colsum = MODE == EPI_DGELU;
 };
 
 struct Epi {
@@ -179,308 +330,99 @@ struct Epi {
   const void* x1;       // EPI_FC2_RESID_OUT: residual, window order
   const float* keep;    // [B, 2] per-sample droppath factors
   void* out;
-  void* aux;            // EPI_FC1_BOTH: f1
+  void* aux;            // EPI_FC1_BOTH: f1 out; EPI_DGELU: f1 in
+  float* colpart;       // colsum modes: [row tiles, N] float32 partials
   Geom g;
 };
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  // jax.nn.gelu(approximate=True), same operation order as _gelu_tanh
-  const float k0 = 0.7978845608028654f, c = 0.044715f;
-  float u = k0 * (x + c * x * x * x);
-  return 0.5f * x * (1.f + tanhf(u));
-}
-
-// One output element. `src` is row_source of row m (rows scattered back to
-// the original layout), `b` the sample of row m.
+// The values of columns n, n + 1 of row m, o[plane][column], in float32
+// (rounded to the output type where they are stored). `src` is row_source
+// of row m, `b` the sample of row m. Returns the float32 values whose column
+// sums a colsum mode accumulates.
 template <typename T, int MODE>
-__device__ __forceinline__ void epilogue(const Epi& e, int Nc, int m, int n,
-                                         long long src, int b, float acc) {
-  T* out = (T*)e.out;
+__device__ __forceinline__ float2 epilogue_vals(const Epi& e, int Nc, int m, int n,
+                                                long long src, int b, float a0, float a1,
+                                                float (&o)[2][2]) {
+  float2 cs = make_float2(0.f, 0.f);
+  const size_t i = (size_t)m * Nc + n;
+  o[0][0] = a0;
+  o[0][1] = a1;
   if (MODE == EPI_QKV) {
-    float v = acc + e.bias[n];
-    if (n < e.n_scaled) v *= e.scale;
-    out[(size_t)m * Nc + n] = from_f<T>(v);
+    o[0][0] = a0 + e.bias[n];
+    o[0][1] = a1 + e.bias[n + 1];
+    if (n < e.n_scaled) {
+      o[0][0] *= e.scale;
+      o[0][1] *= e.scale;
+    }
   } else if (MODE == EPI_PROJ_RESID) {
-    float y = rnd<T>(acc + e.bias[n]);
-    float xv = src < 0 ? 0.f : to_f(((const T*)e.x)[(size_t)src * Nc + n]);
-    float ka = rnd<T>(e.keep[2 * b]);
-    out[(size_t)m * Nc + n] = from_f<T>(xv + rnd<T>(y * ka));
+    const float ka = rnd<T>(e.keep[2 * b]);
+    const float y0 = rnd<T>(a0 + e.bias[n]), y1 = rnd<T>(a1 + e.bias[n + 1]);
+    float x0 = 0.f, x1 = 0.f;
+    if (src >= 0) {
+      const T* xr = (const T*)e.x + (size_t)src * Nc + n;
+      x0 = to_f(xr[0]);
+      x1 = to_f(xr[1]);
+    }
+    o[0][0] = x0 + rnd<T>(y0 * ka);
+    o[0][1] = x1 + rnd<T>(y1 * ka);
   } else if (MODE == EPI_FC1_GELU || MODE == EPI_FC1_BOTH) {
-    float f1 = rnd<T>(rnd<T>(acc) + rnd<T>(e.bias[n]));
-    out[(size_t)m * Nc + n] = from_f<T>(gelu_tanh(f1));
-    if (MODE == EPI_FC1_BOTH) ((T*)e.aux)[(size_t)m * Nc + n] = from_f<T>(f1);
+    const float f0 = rnd<T>(rnd<T>(a0) + rnd<T>(e.bias[n]));
+    const float f1 = rnd<T>(rnd<T>(a1) + rnd<T>(e.bias[n + 1]));
+    o[0][0] = gelu_tanh(f0);
+    o[0][1] = gelu_tanh(f1);
+    o[1][0] = f0;
+    o[1][1] = f1;
   } else if (MODE == EPI_FC2_RESID_OUT) {
-    if (src < 0) return;
-    float f2 = rnd<T>(rnd<T>(acc) + rnd<T>(e.bias[n]));
-    float km = rnd<T>(e.keep[2 * b + 1]);
-    float x1 = to_f(((const T*)e.x1)[(size_t)m * Nc + n]);
-    out[(size_t)src * Nc + n] = from_f<T>(x1 + rnd<T>(f2 * km));
-  } else {  // EPI_PROJ_OUT
-    if (src < 0) return;
-    out[(size_t)src * Nc + n] = from_f<T>(acc + e.bias[n]);
+    if (src < 0) return cs;
+    const float km = rnd<T>(e.keep[2 * b + 1]);
+    const float f0 = rnd<T>(rnd<T>(a0) + rnd<T>(e.bias[n]));
+    const float f1 = rnd<T>(rnd<T>(a1) + rnd<T>(e.bias[n + 1]));
+    const T* x1 = (const T*)e.x1 + i;
+    o[0][0] = to_f(x1[0]) + rnd<T>(f0 * km);
+    o[0][1] = to_f(x1[1]) + rnd<T>(f1 * km);
+  } else if (MODE == EPI_PROJ_OUT) {
+    o[0][0] = a0 + e.bias[n];
+    o[0][1] = a1 + e.bias[n + 1];
+  } else if (MODE == EPI_DGELU) {
+    const T* f = (const T*)e.aux + i;
+    cs.x = o[0][0] = a0 * gelu_tanh_grad(to_f(f[0]));
+    cs.y = o[0][1] = a1 * gelu_tanh_grad(to_f(f[1]));
   }
+  return cs;
 }
 
-// bf16 tensor-core GEMM: 128x64 block tile, 8 warps of 32x32 (2x2 WMMA
-// 16x16x16 fragments), f32 accumulation, K step 32. The accumulator tile is
-// staged through shared memory so the epilogue writes coalesced rows.
-// Needs K % 8 == 0 and 16-byte aligned A and W (checked by the caller).
-constexpr int GB_M = 128, GB_N = 64, GB_K = 32;
-constexpr int G_LDS = GB_K + 8;  // bf16 elements; 80-byte rows
-constexpr int G_LDC = GB_N + 4;  // floats
-
+// Output plane p of a product (EPI_PART: this split's partial).
 template <int MODE>
-__global__ void __launch_bounds__(256)
-gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ W, int M,
-          int Nc, int K, Epi e) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[GB_M * G_LDC * 4];
-  __shared__ long long row_src[GB_M];
-  __shared__ int row_b[GB_M];
-  bf16* As = (bf16*)smem;
-  bf16* Bs = As + GB_M * G_LDS;
-  float* Cs = (float*)smem;  // reused after the main loop
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += GB_K) {
-    for (int v = tid; v < GB_M * GB_K / 8; v += 256) {
-      int r = v / (GB_K / 8), c = (v % (GB_K / 8)) * 8;
-      int gm = m0 + r, gk = k0 + c;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gm < M && gk < K) val = *(const uint4*)(A + (size_t)gm * K + gk);
-      *(uint4*)(As + r * G_LDS + c) = val;
-    }
-    for (int v = tid; v < GB_N * GB_K / 8; v += 256) {
-      int r = v / (GB_K / 8), c = (v % (GB_K / 8)) * 8;
-      int gn = n0 + r, gk = k0 + c;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gn < Nc && gk < K) val = *(const uint4*)(W + (size_t)gn * K + gk);
-      *(uint4*)(Bs + r * G_LDS + c) = val;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + (wn * 32 + j * 16) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * G_LDC + wn * 32 + j * 16,
-                              acc[i][j], G_LDC, wmma::mem_row_major);
-  if (tid < GB_M) {
-    long long m = (long long)m0 + tid;
-    row_src[tid] = m < M ? row_source(e.g, m) : -1;
-    row_b[tid] = (int)(m / ((long long)e.g.nW * e.g.N));
-  }
-  __syncthreads();
-  for (int idx = tid; idx < GB_M * GB_N; idx += 256) {
-    int r = idx / GB_N, c = idx % GB_N;
-    int m = m0 + r, n = n0 + c;
-    if (m < M && n < Nc)
-      epilogue<bf16, MODE>(e, Nc, m, n, row_src[r], row_b[r], Cs[r * G_LDC + c]);
-  }
+__device__ __forceinline__ void* epi_plane(const Epi& e, int p, int M, int Nc) {
+  if (MODE == EPI_PART) return (float*)e.out + (size_t)blockIdx.z * M * Nc;
+  return p == 0 ? e.out : e.aux;
 }
 
-// float32 GEMM on the FMA units: 64x64 block tile, 4x4 per thread. Used by
-// the float32 configuration only.
-template <int MODE>
-__global__ void __launch_bounds__(256)
-gemm_f32(const float* __restrict__ A, const float* __restrict__ W, int M,
-         int Nc, int K, Epi e) {
-  constexpr int TM = 64, TN = 64, TK = 16;
-  __shared__ float As[TK][TM + 4];
-  __shared__ float Bs[TK][TN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int v = tid; v < TM * TK; v += 256) {
-      int r = v / TK, k = v % TK;
-      int gm = m0 + r, gn = n0 + r, gk = k0 + k;
-      As[k][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      Bs[k][r] = (gn < Nc && gk < K) ? W[(size_t)gn * K + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    long long src = row_source(e.g, m);
-    int b = (int)(m / ((long long)e.g.nW * e.g.N));
-    for (int j = 0; j < 4; ++j) {
-      int n = n0 + tx * 4 + j;
-      if (n < Nc) epilogue<float, MODE>(e, Nc, m, n, src, b, acc[i][j]);
-    }
-  }
-}
-
+// Columns n, n + 1 of row m computed and stored straight to device memory.
 template <typename T, int MODE>
-inline cudaError_t launch_gemm(const T* A, const T* W, int M, int Nc, int K,
-                               const Epi& e, cudaStream_t st) {
-  if (sizeof(T) == 2) {
-    dim3 grid((Nc + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
-    gemm_bf16<MODE><<<grid, 256, 0, st>>>((const bf16*)A, (const bf16*)W, M, Nc, K, e);
-  } else {
-    dim3 grid((Nc + 63) / 64, (M + 63) / 64);
-    gemm_f32<MODE><<<grid, 256, 0, st>>>((const float*)A, (const float*)W, M, Nc, K, e);
+__device__ __forceinline__ float2 epilogue2(const Epi& e, int M, int Nc, int m, int n,
+                                            long long src, int b, float a0, float a1) {
+  float o[2][2];
+  const float2 cs = epilogue_vals<T, MODE>(e, Nc, m, n, src, b, a0, a1, o);
+  if (EpiTraits<MODE>::scatter && src < 0) return cs;
+  const size_t i = (size_t)(EpiTraits<MODE>::scatter ? src : m) * Nc + n;
+#pragma unroll
+  for (int p = 0; p < EpiTraits<MODE>::planes; ++p) {
+    if (EpiTraits<MODE>::f32)
+      store2((float*)epi_plane<MODE>(e, p, M, Nc) + i, o[p][0], o[p][1]);
+    else
+      store2((T*)epi_plane<MODE>(e, p, M, Nc) + i, o[p][0], o[p][1]);
   }
-  return cudaGetLastError();
+  return cs;
 }
 
 // ---------------------------------------------------------------------------
-// Window attention: one block per (window, head). q (already scaled and
-// rounded to T by the qkv epilogue), k and v of the window's N tokens are
-// staged in shared memory as float; logits, relative-position bias, shift
-// mask (-100 between region labels) and the softmax stay in float32; p is
-// rounded to T before p @ v, as in the JAX kernel.
+// Fixed-order reductions. The TPU backward kernels add every weight, bias,
+// LayerNorm and logit gradient into outputs that stay resident across a
+// sequential grid. CUDA blocks run concurrently and in no order, so every
+// such sum is split: each block writes a float32 partial over its share of
+// the rows, and one or two more launches add the partials in a fixed order.
 // ---------------------------------------------------------------------------
-
-inline size_t attn_smem_bytes(int N, int hd) {
-  return sizeof(float) * ((size_t)N * hd * 2 + (size_t)N * (hd + 1) +
-                          (size_t)N * (N + 1)) +
-         sizeof(int) * N;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-window_attn(const T* __restrict__ qkv, const float* __restrict__ rel_bias,
-            Geom g, int C, int heads, int has_shift, T* __restrict__ o) {
-  extern __shared__ float sm[];
-  const int N = g.N, hd = C / heads;
-  const int bw = blockIdx.x, h = blockIdx.y, w = bw % g.nW;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float* q = sm;
-  float* k = q + N * hd;
-  float* v = k + N * (hd + 1);
-  float* P = v + N * hd;
-  int* lab = (int*)(P + N * (N + 1));
-
-  const size_t base = (size_t)bw * N * 3 * C;
-  for (int idx = tid; idx < N * hd; idx += 256) {
-    int i = idx / hd, d = idx % hd;
-    const T* row = qkv + base + (size_t)i * 3 * C + h * hd + d;
-    q[i * hd + d] = to_f(row[0]);
-    k[i * (hd + 1) + d] = to_f(row[C]);
-    v[i * hd + d] = to_f(row[2 * C]);
-  }
-  if (has_shift)
-    for (int t = tid; t < N; t += 256) lab[t] = region_label(g, w, t);
-  __syncthreads();
-
-  const float* rb = rel_bias + (size_t)h * N * N;
-  for (int idx = tid; idx < N * N; idx += 256) {
-    int i = idx / N, j = idx % N;
-    float s = 0.f;
-    for (int d = 0; d < hd; ++d) s = fmaf(q[i * hd + d], k[j * (hd + 1) + d], s);
-    s += rb[idx];
-    if (has_shift && lab[i] != lab[j]) s += -100.f;
-    P[i * (N + 1) + j] = s;
-  }
-  __syncthreads();
-
-  for (int i = warp; i < N; i += 8) {
-    float* pr = P + i * (N + 1);
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, pr[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      float ex = expf(pr[j] - mx);
-      pr[j] = ex;
-      sum += ex;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) pr[j] = rnd<T>(pr[j] / sum);
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < N * hd; idx += 256) {
-    int i = idx / hd, d = idx % hd;
-    const float* pr = P + i * (N + 1);
-    float s = 0.f;
-    for (int j = 0; j < N; ++j) s = fmaf(pr[j], v[j * hd + d], s);
-    o[((size_t)bw * N + i) * C + h * hd + d] = from_f<T>(s);
-  }
-}
-
-template <typename T>
-inline cudaError_t launch_attn(const T* qkv, const float* rel_bias,
-                               const Geom& g, int C, int heads, T* o,
-                               cudaStream_t st) {
-  size_t smem = attn_smem_bytes(g.N, C / heads);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        window_attn<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  int has_shift = (g.s0 + g.s1 + g.s2) > 0;
-  dim3 grid(g.B * g.nW, heads);
-  window_attn<T><<<grid, 256, smem, st>>>(qkv, rel_bias, g, C, heads, has_shift, o);
-  return cudaGetLastError();
-}
-
-
-// ===========================================================================
-// Backward building blocks.
-//
-// The TPU backward kernels add the weight, bias, LayerNorm and logit
-// gradients into outputs that stay resident across a sequential grid. CUDA
-// blocks run concurrently and in no order, so every such sum is split here:
-// each block writes a float32 partial over its share of the rows, and one
-// more launch (sum_parts) adds the partials in a fixed order. There are no
-// float atomics, so every result is deterministic.
-// ===========================================================================
-
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-  // _gelu_tanh_grad of the JAX kernel, same operation order
-  const float k0 = 0.7978845608028654f, c = 0.044715f;
-  float u = k0 * (x + c * x * x * x);
-  float t = tanhf(u);
-  float du = k0 * (1.f + 3.f * c * x * x);
-  return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * du;
-}
 
 // out[i] = sum_p part[p * L + i] over p = 0 .. P-1 in order.
 __global__ void __launch_bounds__(256)
@@ -529,412 +471,17 @@ inline int colsum_parts(long long M) {
   return (int)(p < 1 ? 1 : (p > 128 ? 128 : p));
 }
 
-// out[n] = sum_m src[m, n] (float32), deterministic. part holds
+// out[n] = sum_m src[m, n] (float32), deterministic. tmp holds
 // colsum_parts(M) * N floats.
 template <typename S>
-inline cudaError_t launch_colsum(const S* src, long long M, int N, float* part,
+inline cudaError_t launch_colsum(const S* src, long long M, int N, float* tmp,
                                  float* out, cudaStream_t st) {
   const int P = colsum_parts(M);
   const long long rows_per = (M + P - 1) / P;
-  colsum_part<S><<<dim3((N + 31) / 32, P), 256, 0, st>>>(src, M, N, rows_per, part);
+  colsum_part<S><<<dim3((N + 31) / 32, P), 256, 0, st>>>(src, M, N, rows_per, tmp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_sum_parts(part, P, N, out, st);
-}
-
-// ---------------------------------------------------------------------------
-// Backward products, float32 accumulation:
-//   FORM_NN: C[m, n] = sum_k A[m, k] B[k, n], A row-major [M, K]
-//            (dh = d @ W, W the torch-layout [K, N] weight);
-//   FORM_TN: C[m, n] = sum_k A[k, m] B[k, n], A row-major [K, M]
-//            (dW = D^T H, the sum running over the token rows).
-// B is row-major [K, N]. Both operands are rounded to the compute type T on
-// their way into shared memory: the JAX kernel's `.astype(d)` of a float32
-// gradient before its product. The K range is split over blockIdx.z; with
-// E2_STORE each split writes its own partial at out + z * M * N, which
-// sum_parts adds in order.
-// ---------------------------------------------------------------------------
-
-enum Form { FORM_NN = 0, FORM_TN };
-
-enum Epilogue2 {
-  E2_STORE = 0,   // out[z][m, n] = acc
-  E2_GELU_GRAD,   // out[m, n] = acc * gelu_tanh_grad(aux[m, n]), aux = f1 in T
-  E2_SCATTER,     // out_t[row_source(m), n] = T(acc); pad rows dropped
-};
-
-struct Epi2 {
-  float* out;
-  const void* aux;
-  void* out_t;
-  Geom g;
-};
-
-template <typename T, int EPI>
-__device__ __forceinline__ void epilogue2(const Epi2& e, int M, int N, int m,
-                                          int n, long long src, float acc) {
-  const size_t i = (size_t)m * N + n;
-  if (EPI == E2_STORE) {
-    e.out[(size_t)blockIdx.z * M * N + i] = acc;
-  } else if (EPI == E2_GELU_GRAD) {
-    e.out[i] = acc * gelu_tanh_grad(to_f(((const T*)e.aux)[i]));
-  } else if (src >= 0) {
-    ((T*)e.out_t)[(size_t)src * N + n] = from_f<T>(acc);
-  }
-}
-
-// bf16 tensor cores: the forward GEMM's 128x64 tile and warp layout.
-constexpr int G2_LDA_NN = GB_K + 8;  // As[m][k]
-constexpr int G2_LDA_TN = GB_M + 8;  // As[k][m]
-constexpr int G2_LDB = GB_N + 8;     // Bs[k][n]
-constexpr int G2_BS_OFF = GB_M * G2_LDA_NN;  // >= GB_K * G2_LDA_TN
-
-template <int FORM, int EPI, typename SA, typename SB>
-__global__ void __launch_bounds__(256)
-gemm2_bf16(const SA* __restrict__ A, const SB* __restrict__ B, int M, int N,
-           long long K, long long k_per_split, Epi2 e) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[GB_M * G_LDC * 4];
-  __shared__ long long row_src[GB_M];
-  bf16* As = (bf16*)smem;
-  bf16* Bs = As + G2_BS_OFF;
-  float* Cs = (float*)smem;  // reused after the main loop
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-  const long long kb = (long long)blockIdx.z * k_per_split;
-  const long long ke = kb + k_per_split < K ? kb + k_per_split : K;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (long long k0 = kb; k0 < ke; k0 += GB_K) {
-    if (FORM == FORM_NN) {
-      for (int v = tid; v < GB_M * GB_K; v += 256) {
-        int r = v / GB_K, c = v % GB_K;
-        long long gk = k0 + c;
-        int gm = m0 + r;
-        float a = (gm < M && gk < ke) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
-        As[r * G2_LDA_NN + c] = from_f<bf16>(a);
-      }
-    } else {
-      for (int v = tid; v < GB_M * GB_K; v += 256) {
-        int r = v / GB_M, c = v % GB_M;  // r: k, c: m
-        long long gk = k0 + r;
-        int gm = m0 + c;
-        float a = (gm < M && gk < ke) ? to_f(A[(size_t)gk * M + gm]) : 0.f;
-        As[r * G2_LDA_TN + c] = from_f<bf16>(a);
-      }
-    }
-    for (int v = tid; v < GB_K * GB_N; v += 256) {
-      int r = v / GB_N, c = v % GB_N;
-      long long gk = k0 + r;
-      int gn = n0 + c;
-      float b = (gn < N && gk < ke) ? to_f(B[(size_t)gk * N + gn]) : 0.f;
-      Bs[r * G2_LDB + c] = from_f<bf16>(b);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + kk * G2_LDB + wn * 32 + j * 16, G2_LDB);
-      if constexpr (FORM == FORM_NN) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * G2_LDA_NN + kk,
-                                 G2_LDA_NN);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
-      } else {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + kk * G2_LDA_TN + wm * 32 + i * 16,
-                                 G2_LDA_TN);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * G_LDC + wn * 32 + j * 16,
-                              acc[i][j], G_LDC, wmma::mem_row_major);
-  if (tid < GB_M) {
-    long long m = (long long)m0 + tid;
-    row_src[tid] = (EPI == E2_SCATTER && m < M) ? row_source(e.g, m) : -1;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < GB_M * GB_N; idx += 256) {
-    int r = idx / GB_N, c = idx % GB_N;
-    int m = m0 + r, n = n0 + c;
-    if (m < M && n < N)
-      epilogue2<bf16, EPI>(e, M, N, m, n, row_src[r], Cs[r * G_LDC + c]);
-  }
-}
-
-// float32 on the FMA units, 64x64 tile, 4x4 per thread: the float32
-// configuration only.
-template <int FORM, int EPI, typename SA, typename SB>
-__global__ void __launch_bounds__(256)
-gemm2_f32(const SA* __restrict__ A, const SB* __restrict__ B, int M, int N,
-          long long K, long long k_per_split, Epi2 e) {
-  constexpr int TM = 64, TN = 64, TK = 16;
-  __shared__ float As[TK][TM + 4];
-  __shared__ float Bs[TK][TN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const long long kb = (long long)blockIdx.z * k_per_split;
-  const long long ke = kb + k_per_split < K ? kb + k_per_split : K;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long k0 = kb; k0 < ke; k0 += TK) {
-    for (int v = tid; v < TM * TK; v += 256) {
-      int r, k;
-      if (FORM == FORM_NN) { r = v / TK; k = v % TK; } else { k = v / TM; r = v % TM; }
-      int gm = m0 + r;
-      long long gk = k0 + k;
-      float a = 0.f;
-      if (gm < M && gk < ke)
-        a = to_f(FORM == FORM_NN ? A[(size_t)gm * K + gk] : A[(size_t)gk * M + gm]);
-      As[k][r] = a;
-      int kb2 = v / TN, c = v % TN, gn = n0 + c;
-      long long gk2 = k0 + kb2;
-      Bs[kb2][c] = (gn < N && gk2 < ke) ? to_f(B[(size_t)gk2 * N + gn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    long long src = EPI == E2_SCATTER ? row_source(e.g, m) : -1;
-    for (int j = 0; j < 4; ++j) {
-      int n = n0 + tx * 4 + j;
-      if (n < N) epilogue2<float, EPI>(e, M, N, m, n, src, acc[i][j]);
-    }
-  }
-}
-
-// T is the compute type: bf16 runs the tensor-core kernel, float the FMA one.
-// `splits` cuts K into ranges of whole K tiles (E2_STORE only).
-template <typename T, int FORM, int EPI, typename SA, typename SB>
-inline cudaError_t launch_gemm2(const SA* A, const SB* B, int M, int N,
-                                long long K, int splits, const Epi2& e,
-                                cudaStream_t st) {
-  long long per = (K + splits - 1) / splits;
-  per = (per + GB_K - 1) / GB_K * GB_K;
-  if constexpr (sizeof(T) == 2) {
-    dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M, splits);
-    gemm2_bf16<FORM, EPI, SA, SB><<<grid, 256, 0, st>>>(A, B, M, N, K, per, e);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64, splits);
-    gemm2_f32<FORM, EPI, SA, SB><<<grid, 256, 0, st>>>(A, B, M, N, K, per, e);
-  }
-  return cudaGetLastError();
-}
-
-// Row splits of a weight-gradient product: ranges of at least 2048 rows,
-// at most 64 of them.
-inline int wgrad_splits(long long rows) {
-  long long s = (rows + 2047) / 2048;
-  return (int)(s < 1 ? 1 : (s > 64 ? 64 : s));
-}
-
-// out[n1, n2] = sum_r T(D[r, n1]) * T(H[r, n2]) over `rows` rows, in float32:
-// split-row partials, then a fixed-order sum. part holds
-// wgrad_splits(rows) * n1 * n2 floats.
-template <typename T, typename SA, typename SB>
-inline cudaError_t weight_grad(const SA* D, const SB* H, long long rows, int n1,
-                               int n2, float* part, float* out, cudaStream_t st) {
-  const int S = wgrad_splits(rows);
-  Epi2 e = {};
-  e.out = part;
-  cudaError_t err = launch_gemm2<T, FORM_TN, E2_STORE>(D, H, n1, n2, rows, S, e, st);
-  if (err != cudaSuccess) return err;
-  return launch_sum_parts(part, S, (long long)n1 * n2, out, st);
-}
-
-// ---------------------------------------------------------------------------
-// Window attention backward: one block per (group of windows, head). Per
-// window it recomputes p (float32, as the forward) from the T-rounded q
-// (already scaled), k, v, the bias and the shift mask, then
-//   dp = T(do) v^T, dv = T(p)^T T(do), dl = p * (dp - rowsum(dp * p)),
-//   dq = (T(dl) k) * scale, dk = T(dl)^T q,
-// written into dqkv [M, 3C] (float32, the qkv column layout). The group's
-// dl are summed in window order into dlogit_part[group, head]; sum_parts
-// then adds the groups in order.
-// ---------------------------------------------------------------------------
-
-inline size_t attn_bwd_smem_bytes(int N, int hd) {
-  return sizeof(float) * (4 * (size_t)N * (hd + 1) + 2 * (size_t)N * (N + 1) +
-                          (size_t)N * N) +
-         sizeof(int) * N;
-}
-
-// Windows per block: groups of enough windows that at most ~1024 groups
-// (each a [heads, N, N] partial) are written.
-inline int attn_bwd_windows_per_group(long long n_win) {
-  return (int)((n_win + 1023) / 1024);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-window_attn_bwd(const T* __restrict__ qkv, const float* __restrict__ dout,
-                const float* __restrict__ rel_bias, Geom g, int C, int heads,
-                int has_shift, int wpg, int n_win, float scale,
-                float* __restrict__ dqkv, float* __restrict__ dlogit_part) {
-  extern __shared__ float sm[];
-  const int N = g.N, hd = C / heads, ld = hd + 1, lp = N + 1;
-  const int grp = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float* q = sm;
-  float* k = q + N * ld;
-  float* v = k + N * ld;
-  float* dO = v + N * ld;
-  float* P = dO + N * ld;
-  float* D = P + N * lp;
-  float* acc = D + N * lp;
-  int* lab = (int*)(acc + N * N);
-  for (int idx = tid; idx < N * N; idx += 256) acc[idx] = 0.f;
-  const float* rb = rel_bias + (size_t)h * N * N;
-  const int w_end = (grp + 1) * wpg < n_win ? (grp + 1) * wpg : n_win;
-
-  for (int bw = grp * wpg; bw < w_end; ++bw) {
-    const int w = bw % g.nW;
-    const size_t row0 = (size_t)bw * N;
-    __syncthreads();  // the previous window is done with shared memory
-    for (int idx = tid; idx < N * hd; idx += 256) {
-      int i = idx / hd, d = idx % hd;
-      const T* r = qkv + (row0 + i) * 3 * C + h * hd + d;
-      q[i * ld + d] = to_f(r[0]);
-      k[i * ld + d] = to_f(r[C]);
-      v[i * ld + d] = to_f(r[2 * C]);
-      dO[i * ld + d] = rnd<T>(dout[(row0 + i) * C + h * hd + d]);
-    }
-    if (has_shift)
-      for (int t = tid; t < N; t += 256) lab[t] = region_label(g, w, t);
-    __syncthreads();
-
-    for (int idx = tid; idx < N * N; idx += 256) {
-      int i = idx / N, j = idx % N;
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        s = fmaf(q[i * ld + d], k[j * ld + d], s);
-        dp = fmaf(dO[i * ld + d], v[j * ld + d], dp);
-      }
-      s += rb[idx];
-      if (has_shift && lab[i] != lab[j]) s += -100.f;
-      P[i * lp + j] = s;
-      D[i * lp + j] = dp;
-    }
-    __syncthreads();
-
-    for (int i = warp; i < N; i += 8) {
-      float* pr = P + i * lp;
-      float* dr = D + i * lp;
-      float mx = -INFINITY;
-      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        float ex = expf(pr[j] - mx);
-        pr[j] = ex;
-        sum += ex;
-      }
-      sum = warp_sum(sum);
-      float dot = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        pr[j] = pr[j] / sum;
-        dot += dr[j] * pr[j];
-      }
-      dot = warp_sum(dot);
-      for (int j = lane; j < N; j += 32) {
-        float dl = pr[j] * (dr[j] - dot);
-        dr[j] = dl;
-        acc[i * N + j] += dl;
-      }
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < N * hd; idx += 256) {
-      int i = idx / hd, d = idx % hd;
-      float dq = 0.f, dk = 0.f, dv = 0.f;
-      for (int j = 0; j < N; ++j) {
-        dq = fmaf(rnd<T>(D[i * lp + j]), k[j * ld + d], dq);
-        dk = fmaf(rnd<T>(D[j * lp + i]), q[j * ld + d], dk);
-        dv = fmaf(rnd<T>(P[j * lp + i]), dO[j * ld + d], dv);
-      }
-      float* out = dqkv + (row0 + i) * 3 * C + h * hd + d;
-      out[0] = dq * scale;
-      out[C] = dk;
-      out[2 * C] = dv;
-    }
-  }
-  __syncthreads();
-  float* part = dlogit_part + ((size_t)grp * heads + h) * N * N;
-  for (int idx = tid; idx < N * N; idx += 256) part[idx] = acc[idx];
-}
-
-// dqkv [M, 3C] and dlogit [heads, N, N] from qkv (T) and do (float32).
-// part holds attn_bwd_part_floats(...) floats.
-inline long long attn_bwd_part_floats(const Geom& g, int heads) {
-  const long long n_win = (long long)g.B * g.nW;
-  const int wpg = attn_bwd_windows_per_group(n_win);
-  return (n_win + wpg - 1) / wpg * heads * (long long)g.N * g.N;
-}
-
-template <typename T>
-inline cudaError_t launch_attn_bwd(const T* qkv, const float* dout,
-                                   const float* rel_bias, const Geom& g, int C,
-                                   int heads, float scale, float* dqkv,
-                                   float* part, float* dlogit, cudaStream_t st) {
-  const size_t smem = attn_bwd_smem_bytes(g.N, C / heads);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        window_attn_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int n_win = g.B * g.nW;
-  const int wpg = attn_bwd_windows_per_group(n_win);
-  const int groups = (n_win + wpg - 1) / wpg;
-  const int has_shift = (g.s0 + g.s1 + g.s2) > 0;
-  window_attn_bwd<T><<<dim3(groups, heads), 256, smem, st>>>(
-      qkv, dout, rel_bias, g, C, heads, has_shift, wpg, n_win, scale, dqkv, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_sum_parts(part, groups, (long long)heads * g.N * g.N, dlogit, st);
+  return launch_sum_parts(tmp, P, N, out, st);
 }
 
 // Bump allocator over one workspace buffer (256-byte aligned pieces). With
@@ -950,3 +497,6 @@ struct Carve {
 };
 
 }  // namespace swin
+
+#include "swin_gemm.cuh"
+#include "swin_attn.cuh"

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one library per kernel source
 SOURCES = ("fused_block", "fused_attention", "fused_block_bwd",
@@ -31,6 +31,10 @@ SOURCES = ("fused_block", "fused_attention", "fused_block_bwd",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output of the build of each source (ptxas: registers, shared memory
+# and spills of every kernel), kept as lib<name>.log beside the library and
+# read back when the library was built by an earlier process
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -59,6 +63,10 @@ def build_all() -> float:
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
+    for name in SOURCES:
+        log_file = out_dir / f"lib{name}.log"
+        if name not in todo and log_file.exists():
+            BUILD_LOG[name] = log_file.read_text()
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -75,6 +83,8 @@ def build_all() -> float:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            BUILD_LOG[name] = log
+            (out_dir / f"lib{name}.log").write_text(log)
             os.replace(tmp, out_dir / f"lib{name}.so")
     if errors:
         raise RuntimeError("\n".join(errors))

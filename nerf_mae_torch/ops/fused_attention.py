@@ -123,7 +123,7 @@ def fused_window_attention(x, qkv_weight, qkv_bias, proj_weight, proj_bias,
     w_proj = kernels.gemm_operand(proj_weight, d, "proj_weight")
     b_qkv = qkv_bias.to(device=dev, dtype=torch.float32).contiguous()
     b_proj = proj_bias.to(device=dev, dtype=torch.float32).contiguous()
-    rel = relative_position_bias(bias_table, window).contiguous()
+    rel = bias_table.to(device=dev, dtype=torch.float32).contiguous()  # expanded in the kernel
     h_buf = torch.empty((m, c), dtype=d, device=dev)
     qkv_buf = torch.empty((m, 3 * c), dtype=d, device=dev)
     out = torch.empty_like(x)
@@ -257,7 +257,7 @@ def fused_window_attention_bwd(x, qkv_weight, qkv_bias, proj_weight,
     w_qkv = kernels.gemm_operand(qkv_weight, d, "qkv_weight")
     w_proj = kernels.gemm_operand(proj_weight, d, "proj_weight")
     b_qkv = qkv_bias.to(device=dev, dtype=torch.float32).contiguous()
-    rel = relative_position_bias(bias_table, window).contiguous()
+    rel = bias_table.to(device=dev, dtype=torch.float32).contiguous()  # expanded in the kernel
     n = math.prod(window)
     dims = kernels.int_array([b, g0, g1, g2, c, num_heads, *window, *eff])
     fn, ws = _bwd_lib()

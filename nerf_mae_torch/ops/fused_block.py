@@ -167,14 +167,15 @@ def fused_swin_block(x, ln1_scale, ln1_bias, qkv_weight, qkv_bias,
     w_proj = kernels.gemm_operand(proj_weight, d, "proj_weight")
     w_fc1 = kernels.gemm_operand(fc1_weight, d, "fc1_weight")
     w_fc2 = kernels.gemm_operand(fc2_weight, d, "fc2_weight")
-    rel = relative_position_bias(bias_table, window).contiguous()
+    rel = bias_table.to(device=dev, dtype=torch.float32).contiguous()  # expanded in the kernel
     keep = f32(keep)
     ln1_s, ln1_b, ln2_s, ln2_b = map(f32, (ln1_scale, ln1_bias, ln2_scale, ln2_bias))
     b_qkv, b_proj, b_fc1, b_fc2 = map(f32, (qkv_bias, proj_bias, fc1_bias, fc2_bias))
     h_buf = torch.empty((m, c), dtype=d, device=dev)
-    qkv_buf = torch.empty((m, 3 * c), dtype=d, device=dev)
+    # qkv is dead once the attention has read it: g reuses its buffer
+    qkv_buf = torch.empty((m, max(3 * c, f)), dtype=d, device=dev)
     x1_buf = torch.empty((m, c), dtype=d, device=dev)
-    g_buf = torch.empty((m, f), dtype=d, device=dev)
+    g_buf = qkv_buf
     out = torch.empty_like(x)
     scale = float(np.float32((c // num_heads) ** -0.5))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -341,7 +342,7 @@ def fused_swin_block_bwd(x, ln1_scale, ln1_bias, qkv_weight, qkv_bias,
     w_proj = kernels.gemm_operand(proj_weight, d, "proj_weight")
     w_fc1 = kernels.gemm_operand(fc1_weight, d, "fc1_weight")
     w_fc2 = kernels.gemm_operand(fc2_weight, d, "fc2_weight")
-    rel = relative_position_bias(bias_table, window).contiguous()
+    rel = bias_table.to(device=dev, dtype=torch.float32).contiguous()  # expanded in the kernel
     inputs = [x, dy, f32(ln1_scale), f32(ln1_bias), w_qkv, f32(qkv_bias),
               w_proj, f32(proj_bias), f32(ln2_scale), f32(ln2_bias), w_fc1,
               f32(fc1_bias), w_fc2, f32(fc2_bias), rel, f32(keep)]

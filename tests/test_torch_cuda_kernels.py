@@ -15,12 +15,14 @@ bf16 rounding boundary before it feeds the next product, and those flips
 accumulate down the chain) and 1e-5 in float32.
 """
 
+import ctypes
+import dataclasses
 import math
 
 import pytest
 import torch
 
-import dataclasses
+from nerf_mae_torch import kernels
 
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, SwinConfig
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
@@ -62,12 +64,13 @@ def _close(got, want, dtype):
         assert rel <= 1e-5
 
 
-def _weights(c, heads, gen, dev):
+def _weights(c, heads, gen, dev, window=WINDOW):
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    table = math.prod(2 * w - 1 for w in window)
     return (1 + 0.1 * r(c), 0.1 * r(c), r(3 * c, c) / c ** 0.5, 0.1 * r(3 * c),
             r(c, c) / c ** 0.5, 0.1 * r(c), 1 + 0.1 * r(c), 0.1 * r(c),
             r(4 * c, c) / c ** 0.5, 0.1 * r(4 * c), r(c, 4 * c) / (2 * c ** 0.5),
-            0.1 * r(c), r(343, heads))
+            0.1 * r(c), r(table, heads))
 
 
 CASES = [  # shape, heads, shift, dtype
@@ -75,6 +78,10 @@ CASES = [  # shape, heads, shift, dtype
     ((2, 10, 10, 10, 64), 2, (2, 2, 2), torch.bfloat16),  # padded
     ((1, 12, 4, 4, 32), 2, (0, 0, 0), torch.bfloat16),    # odd window count
     ((1, 6, 6, 6, 32), 4, (2, 2, 2), torch.float32),
+    # rows not a multiple of the 128-row GEMM tile, 3C = 288 not a multiple
+    # of the 128-column tile, padded and shifted
+    ((1, 9, 7, 5, 96), 3, (2, 2, 2), torch.bfloat16),
+    ((1, 10, 10, 10, 512), 16, (2, 2, 2), torch.bfloat16),  # stage 2, padded
 ]
 
 
@@ -200,3 +207,106 @@ def test_every_parameter_gets_a_gradient(dev, gelu):
         assert prm.grad is not None, name
         assert torch.isfinite(prm.grad).all(), name
         assert prm.grad.abs().max() > 0, name
+
+
+def test_fused_block_bwd_kernel_is_bitwise_repeatable(dev):
+    """Two backward calls on the same inputs give bitwise equal dx and
+    gradients: every cross-CTA sum is a fixed-order sum of partials."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    shape, heads = (2, 10, 10, 10, 128), 4
+    w = _weights(shape[-1], heads, gen, dev)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    keep = torch.tensor([[1.25, 0.0], [0.0, 1.25]], device=dev)
+    args = (x, *w, keep, dy, WINDOW, (2, 2, 2), heads, 1e-5)
+    first = fused_swin_block_bwd(*args)
+    second = fused_swin_block_bwd(*args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+# bf16 shapes off the swin_b path, each through both kernels forward and
+# backward: 128-token windows and heads of 64 and 128 (the general attention
+# kernels, or the 64-token kernels at their widest), and a head dim that is
+# not a multiple of 8 (element-wise staging of q, k, v and do)
+OTHER_CASES = [  # shape, heads, window, shift
+    ((1, 8, 8, 12, 64), 2, (4, 4, 8), (2, 2, 4)),     # N = 128, hd 32, padded
+    ((1, 8, 8, 8, 256), 4, (4, 4, 8), (0, 0, 0)),     # N = 128, hd 64
+    ((1, 8, 8, 8, 256), 4, (4, 4, 4), (2, 2, 2)),     # N = 64, hd 64
+    ((1, 8, 8, 8, 512), 4, (4, 4, 4), (2, 2, 2)),     # N = 64, hd 128
+    ((1, 6, 6, 6, 48), 4, (4, 4, 4), (2, 2, 2)),      # hd 12, padded
+    ((1, 6, 6, 10, 48), 4, (4, 4, 8), (2, 2, 4)),     # N = 128, hd 12, padded
+]
+
+
+def _other_inputs(dev, shape, heads, window, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    w = _weights(shape[-1], heads, gen, dev, window)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    return w, x, dy
+
+
+@pytest.mark.parametrize("shape,heads,window,shift", OTHER_CASES)
+def test_kernels_match_plain_at_other_shapes(dev, shape, heads, window, shift):
+    w, x, dy = _other_inputs(dev, shape, heads, window, 7)
+    keep = torch.tensor([[1.25, 0.75]], device=dev)
+    blk = (x, *w, keep, window, shift, heads, 1e-5)
+    _close(fused_swin_block(*blk), fused_swin_block_plain(*blk), torch.bfloat16)
+    attn = (x, w[2], w[3], w[4], w[5], w[12], window, shift, heads)
+    _close(fused_window_attention(*attn), fused_window_attention_plain(*attn), torch.bfloat16)
+    blk_b = (x, *w, keep, dy, window, shift, heads, 1e-5)
+    _grads_close(fused_swin_block_bwd(*blk_b), fused_swin_block_bwd_plain(*blk_b),
+                 torch.bfloat16)
+    attn_b = (x, w[2].to(x.dtype), w[3], w[4].to(x.dtype), w[12], dy, window, shift, heads)
+    _grads_close(fused_window_attention_bwd(*attn_b),
+                 fused_window_attention_bwd_plain(*attn_b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,heads,window,shift", OTHER_CASES)
+def test_backward_kernels_are_bitwise_repeatable_at_other_shapes(dev, shape, heads, window,
+                                                                 shift):
+    w, x, dy = _other_inputs(dev, shape, heads, window, 8)
+    keep = torch.tensor([[1.25, 0.75]], device=dev)
+    blk_b = (x, *w, keep, dy, window, shift, heads, 1e-5)
+    attn_b = (x, w[2].to(x.dtype), w[3], w[4].to(x.dtype), w[12], dy, window, shift, heads)
+    for fn, args in ((fused_swin_block_bwd, blk_b), (fused_window_attention_bwd, attn_b)):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            assert torch.equal(a, b), (fn.__name__, i)
+
+
+GEMM_CASES = [  # form, M, N, K: ragged against the 128 x 128 x 64 tiles
+    (0, 200, 136, 72),    # A W^T
+    (1, 200, 136, 72),    # A W
+    (2, 136, 96, 1000),   # A^T B, the sum over K rows
+    (2, 32, 64, 13824),   # one narrow tile, many rows
+]
+
+
+@pytest.mark.parametrize("form,m,n,k", GEMM_CASES)
+def test_gemm_core_matches_matmul(dev, form, m, n, k):
+    """The TMA + wgmma product in each of its three forms against a float32
+    matmul of the same bf16 values: bf16 products are exact in float32, so
+    only the summation order differs, whose rounding grows as the square
+    root of the sum's length (relative L2 max(1e-5, 4e-7 sqrt(K)))."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+    a = r(k, m) if form == 2 else r(m, k)
+    b = r(n, k) if form == 0 else r(k, n)
+    want = {0: lambda: a.float() @ b.float().t(), 1: lambda: a.float() @ b.float(),
+            2: lambda: a.float().t() @ b.float()}[form]()
+    out = torch.empty((m, n), device=dev)
+    fn = kernels.load("fused_block_bwd").gemm_core_for_tests
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernels.check(fn(form, m, n, k, a.data_ptr(), b.data_ptr(), out.data_ptr(), stream),
+                  "gemm_core_for_tests")
+    torch.cuda.synchronize()
+    assert ((out - want).norm() / want.norm()).item() <= max(1e-5, 4e-7 * math.sqrt(k))
