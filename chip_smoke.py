@@ -42,7 +42,26 @@ Phases (any failure raises and the exit code is not 0):
  10. profile: torch.profiler over one block forward and one block backward
      at stage 0 and at stage 2 (batch 8, unshifted): device time per kernel
      name, sorted, with launch counts and the sum;
- 11. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 11. swin_s kernel cases: the fused block forward and backward against their
+     plain versions at every (stage, shift) of the swin_s 160^3 forward and
+     train step at batch 8 (C 96 / 192 / 384, heads 3 / 6 / 12), bf16, at
+     the phase 3 / 6 tolerances, CUDA-event medians beside bound and plain;
+ 12. voxel super-resolution: run_mae_pretrain writes a swin_s 160^3
+     checkpoint (batch 8, 2 steps); `nerf_mae_torch.run_voxel_sr.main`
+     trains swin_s 160^3 -> 256^3 at batch 8 for 4 steps from it (finite
+     losses, 22 fused-block forward and 22 backward launches per step),
+     `--mode eval` reads its checkpoint back, `--mode benchmark` runs at
+     256^3 and 384^3; the graft is verified (every `base` tensor equals the
+     MAE checkpoint's); one step's parts on the device timeline with the
+     peak memory of each; one step under torch.profiler (device time by
+     kernel name, the device's idle share); the batch-1 forward through
+     the kernels against the plain composition (rel L2 <= 5e-2); one
+     batch-1 float32 train step's gradients by group, kernels against plain
+     (<= 1e-2);
+ 13. voxel semantics: the same at 19 classes, with class weights from
+     calculate_class_weights on the synthetic training labels; eval prints
+     mIoU / mAcc / allAcc;
+ 14. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -64,8 +83,11 @@ import time
 import numpy as np
 import torch
 
-from nerf_mae_torch import inference, kernels, run_mae_pretrain
+from nerf_mae_torch import (inference, kernels, run_mae_pretrain, run_voxel_semantics,
+                            run_voxel_sr)
+from nerf_mae_torch.common import load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
+from nerf_mae_torch.models import heads
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
 from nerf_mae_torch.ops.fused_attention import (
     fused_window_attention,
@@ -81,6 +103,7 @@ from nerf_mae_torch.ops.fused_block import (
 )
 from nerf_mae_torch.ops.masking import block_mask_3d
 from nerf_mae_torch.train import optim
+from nerf_mae_torch.train.head_trainer import VoxelSemanticsTrainer, VoxelSRTrainer
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, float32 FMA units,
 # HBM3 bandwidth. Bounds are stated against them, with the card's power
@@ -98,6 +121,13 @@ KERNEL_BATCHES = (1, 2, 8)
 TRAIN_BATCH = 8  # the train step's batch (phases 6 and 7)
 TRAIN_STEPS = 6
 STAGES = {0: (40, 128, 4), 1: (20, 256, 8), 2: (10, 512, 16)}  # grid, C, heads
+# the downstream heads' trunk (the users' launch scripts: swin_s, batch 8);
+# its depths 2/2/18/2 give the same 22 fused blocks per forward
+SWIN_S_STAGES = {0: (40, 96, 3), 1: (20, 192, 6), 2: (10, 384, 12)}
+HEAD_BATCH = 8
+HEAD_STEPS = 4
+SR_OUT = (256, 384)  # the reference's two output grids (train at the first)
+NUM_CLASSES = 19
 
 
 def log(msg: str) -> None:
@@ -842,13 +872,42 @@ def phase_grads(dev, gelu):
     return launches
 
 
-def phase_profile(dev):
-    """torch.profiler (CPU and CUDA activities) over one block forward and
-    one block backward call at stage 0 and at stage 2, batch 8, unshifted
-    (phase 6's shapes): device time per kernel name, sorted, with launch
-    counts and the sum, as the sub-launch breakdown of each call."""
+def profile_device(fn):
+    """torch.profiler (CPU and CUDA activities) around one fn() and a
+    synchronize. Returns (rows, busy_ms, span_ms): rows of (device ms,
+    launches, kernel name), sorted by time; the union of the device
+    activities' intervals and the span from the first one's start to the
+    last one's end (both 0 when the profiler recorded no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # CPU ops (aten::*) repeat their kernels' device time
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return rows, busy / 1e3, (end - spans[0][0]) / 1e3 if spans else 0.0
+
+
+def phase_profile(dev):
+    """torch.profiler over one block forward and one block backward call at
+    stage 0 and at stage 2, batch 8, unshifted (phase 6's shapes): device
+    time per kernel name, sorted, with launch counts and the sum, as the
+    sub-launch breakdown of each call."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     for stage in (0, 2):
@@ -869,20 +928,8 @@ def phase_profile(dev):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
+            rows, _, _ = profile_device(fn)
             extra_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-            rows = []
-            for e in prof.key_averages():
-                if e.device_type != DeviceType.CUDA:
-                    continue  # CPU ops (aten::*) repeat their kernels' device time
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(e, "self_cuda_time_total", 0)
-                if us > 0:
-                    rows.append((us / 1e3, e.count, e.key))
-            rows.sort(reverse=True)
             total = sum(r[0] for r in rows)
             log(f"  block {what} stage{stage} {list(shape)}: {len(rows)} kernel names, "
                 f"{sum(r[1] for r in rows)} launches, device time {total:.4f} ms, "
@@ -894,6 +941,338 @@ def phase_profile(dev):
                 log(f"    {ms:9.4f} ms  {100 * ms / max(total, 1e-9):5.1f}%  x{count:<3d} {key[:120]}")
         del x, dy, w, block, calls
         torch.cuda.empty_cache()
+
+
+def phase_swin_s_kernels(dev):
+    """The fused block forward and backward against their plain versions at
+    every (stage, shift) of the swin_s 160^3 forward and train step at batch
+    8, bf16: the forward with the bf16 weight casts and the backward with
+    the float32 parameters (as the model hands them over in training),
+    droppath factors of a train step. Returns per kernel the sums over the
+    22 launches of one step of the measured medians."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    bf16 = torch.bfloat16
+    summary = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
+                       max_abs_err=0.0) for k in ("block", "block_bwd")}
+    for (stage, shifted), weight in LAUNCHES_PER_FORWARD.items():
+        g, c, heads_ = SWIN_S_STAGES[stage]
+        shape = (HEAD_BATCH, g, g, g, c)
+        shift = (2, 2, 2) if shifted else (0, 0, 0)
+        w = block_weights(c, heads_, gen, dev, torch.float32)
+        wf = {k: v.to(bf16) if k in ("qkv_weight", "proj_weight", "fc1_weight",
+                                     "fc2_weight") else v for k, v in w.items()}
+        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        keep = train_keep(HEAD_BATCH, dev)
+        tag = f"swin_s stage{stage} {list(shape)} shift {shift} bf16"
+        for kind, fn, plain_fn, args in (
+                ("block", fused_swin_block, fused_swin_block_plain,
+                 (x, *block_args(wf), keep, (4, 4, 4), shift, heads_, 1e-5)),
+                ("block_bwd", fused_swin_block_bwd, fused_swin_block_bwd_plain,
+                 (x, *block_args(w), keep, dy, (4, 4, 4), shift, heads_, 1e-5))):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            if kind == "block":
+                err = check_close(f"{kind} {tag}", got, plain_fn(*args), bf16)
+            else:
+                err = check_grads(f"{kind} {tag}", kind, got, plain_fn(*args), bf16)
+            del got
+            ms = time_ms(lambda: fn(*args), reps=10, warmup=2)
+            plain_ms = time_ms(lambda: plain_fn(*args), reps=5, warmup=1)
+            flops, nbytes = work(kind, shape, heads_, bf16)
+            b_ms, b_by = bound(flops, nbytes, bf16)
+            log(f"  {kind} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.2f}% of bound, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+            s = summary[kind]
+            s["ms"] += weight * ms
+            s["plain_ms"] += weight * plain_ms
+            s["bound_ms"] += weight * b_ms
+            s["flops"] += weight * flops
+            s["bytes"] += weight * nbytes
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+        del x, dy, w, wf
+        torch.cuda.empty_cache()
+    for kind, s in summary.items():
+        log(f"  {kind} per swin_s batch-{HEAD_BATCH} step (sum of 22 measured medians): "
+            f"kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
+            f"{s['bound_ms']:.4f} ms, {100 * s['bound_ms'] / s['ms']:.2f}% of bound")
+    return summary
+
+
+def swin_s_cfg(dtype="bfloat16", **swin_kw):
+    return MAEConfig(swin=dataclasses.replace(SWIN_PRESETS["swin_s"], **swin_kw),
+                     resolution=RES, compute_dtype=dtype)
+
+
+def head_trainer(kind, cfg, dev, weights=None):
+    if kind == "sr":
+        return VoxelSRTrainer(cfg, TrainConfig(), 100, dev, out_resolution=SR_OUT[0])
+    return VoxelSemanticsTrainer(cfg, TrainConfig(), 100, dev, num_classes=NUM_CLASSES,
+                                 class_weights=weights)
+
+
+def head_batch(kind, batch, dev, seed):
+    """Random grids at 160^3 (about 40% occupied) with an SR target at
+    256^3 or labels in [0, 19), on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    grids = torch.rand((batch, RES, RES, RES, 4), generator=gen, device=dev)
+    grids[..., 3] = (grids[..., 3] > 0.6).float() * grids[..., 3]
+    if kind == "sr":
+        r = SR_OUT[0]
+        out = torch.rand((batch, r, r, r, 4), generator=gen, device=dev)
+        out[..., 3] = (out[..., 3] > 0.6).float() * out[..., 3]
+        return {"grids": grids, "out_grids": out}
+    return {"grids": grids, "semantics": torch.randint(
+        0, NUM_CLASSES, (batch, RES, RES, RES), generator=gen, device=dev)}
+
+
+def head_step_breakdown(kind, trainer, state, batch):
+    """CUDA-event times (ms) of the parts of one train step on the device
+    timeline, medians of 3 steps after a warm-up: encoder1, the trunk with
+    decoder4/3/2 (`base`), decoder1, the 1x1 head (with the SR resize), the
+    loss, backward, clip + AdamW; and the peak of allocated device memory
+    within each part (GiB, last step)."""
+    model, cfg = state.model, trainer.mae_cfg
+    model.train()
+    names = ("encoder1", "base", "decoder1", "head", "loss", "backward", "clip+adamw")
+    parts = {k: [] for k in names}
+    peaks = {}
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(21)
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def mark(i):
+            ev[i].record()
+            if i:
+                peaks[names[i - 1]] = torch.cuda.max_memory_allocated() / 2**30
+                torch.cuda.reset_peak_memory_stats()
+
+        mark(0)
+        enc1 = heads.maybe_remat(cfg, model.encoder1, batch["grids"].to(cfg.dtype))
+        mark(1)
+        d = model.base(batch["grids"], False, gen)
+        mark(2)
+        d = heads.maybe_remat(cfg, model.decoder1, d, enc1)
+        mark(3)
+        out = model.head(d)
+        mark(4)
+        loss, _ = trainer._loss(out, batch)
+        mark(5)
+        del enc1, d, out
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark(6)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in model.parameters()]
+        optim.clip_with_nonfinite_guard(grads, 0.1)
+        state.optimizer.step()
+        mark(7)
+        ev[-1].synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: statistics.median(v) for k, v in parts.items()}, peaks
+
+
+def head_param_group(name: str) -> str:
+    """base.<param_group of the MAE name>, encoder1, decoder1, voxel_out /
+    sem_out."""
+    if name.startswith("base."):
+        return "base." + param_group(name[len("base."):])
+    return name.split(".")[0]
+
+
+def head_compare_with_plain(kind, dev, weights):
+    """One batch-1 bf16 forward through the kernels against the plain
+    composition (same weights; rel L2 <= 5e-2), and one batch-1 float32
+    train step's gradients by group, kernels against plain (<= 1e-2), with
+    22 fused-block forward and backward launches. Returns the float32
+    kernel step's launches."""
+    batch = head_batch(kind, 1, dev, seed=31)
+    models = {}
+    for dtype in ("bfloat16", "float32"):
+        for impl in ("auto", "plain"):
+            trainer = head_trainer(kind, swin_s_cfg(dtype, attention_impl=impl), dev, weights)
+            models[dtype, impl] = trainer
+    state = init_weights(models["float32", "auto"]._build_model(), seed=1).state_dict()
+
+    def model_of(key):
+        m = models[key]._build_model()
+        m.load_state_dict(state)
+        return m
+
+    with torch.no_grad():
+        reset_launches()
+        got = model_of(("bfloat16", "auto")).eval()(batch["grids"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = model_of(("bfloat16", "plain")).eval()(batch["grids"])
+    _, rel, _ = errors(got, want)
+    log(f"  {kind} batch-1 bf16 forward, kernels vs plain composition: rel_l2 {rel:.3e} "
+        f"(tol 5e-2), output {list(got.shape)}, launches {launches}")
+    if not torch.isfinite(got).all() or rel > 5e-2 or launches["block"] != 22:
+        raise AssertionError(f"{kind}: the forward disagrees with the plain composition")
+    del got, want
+
+    grads, losses, f32_launches = {}, {}, None
+    for impl in ("auto", "plain"):
+        trainer = models["float32", impl]
+        model = model_of(("float32", impl)).train()
+        dp = torch.Generator(device=dev)
+        dp.manual_seed(7)
+        reset_launches()
+        loss, _ = trainer._loss(model(batch["grids"], False, droppath_generator=dp), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        if impl == "auto":
+            f32_launches = read_launches()
+        losses[impl] = loss.item()
+        grads[impl] = {}
+        for name, prm in model.named_parameters():
+            if prm.grad is None or not torch.isfinite(prm.grad).all():
+                raise AssertionError(f"{kind}: parameter {name} got no finite gradient")
+            grads[impl][name] = prm.grad.float()
+        del model, loss
+    num, den = {}, {}
+    for name, w in grads["plain"].items():
+        grp = head_param_group(name)
+        num[grp] = num.get(grp, 0.0) + (grads["auto"][name] - w).norm().item() ** 2
+        den[grp] = den.get(grp, 0.0) + w.norm().item() ** 2
+    rels = {g: math.sqrt(num[g] / max(den[g], 1e-30)) for g in num}
+    loss_rel = abs(losses["auto"] - losses["plain"]) / abs(losses["plain"])
+    log(f"  {kind} batch-1 float32 train step, kernels vs plain: loss {losses['auto']:.6f} "
+        f"vs {losses['plain']:.6f} (rel {loss_rel:.2e}, tol {F32_LOSS_TOL:.0e}); launches "
+        f"{f32_launches}; gradients by group (tol {F32_GRAD_TOL:.0e}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    if (f32_launches["block"], f32_launches["block_bwd"]) != (22, 22):
+        raise AssertionError(f"{kind} float32 launches {f32_launches}, expected 22 and 22")
+    if loss_rel > F32_LOSS_TOL or max(rels.values()) > F32_GRAD_TOL:
+        raise AssertionError(f"{kind}: float32 kernel gradients disagree with plain")
+    del grads, state
+    torch.cuda.empty_cache()
+    return f32_launches
+
+
+def write_mae_checkpoint(tmp):
+    """run_mae_pretrain: swin_s 160^3, batch 8, 2 steps; the checkpoint dir."""
+    ckpt = os.path.join(tmp, "mae_swin_s")
+    reset_launches()
+    out = run_mae_pretrain.main([
+        "--mode", "train", "--dataset", "synthetic", "--backbone_type", "swin_s",
+        "--resolution", str(RES), "--batch_size", str(HEAD_BATCH), "--device", "cuda",
+        "--n_synthetic", str(HEAD_BATCH), "--steps", "2", "--checkpoint_dir", ckpt,
+        "--log_interval", "1", "--eval_interval", "1000000", "--ckpt_interval", "1000000"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  run_mae_pretrain swin_s: losses {[round(h['loss'], 5) for h in out['history']]}, "
+        f"launches {launches}")
+    if (launches["block"], launches["block_bwd"]) != (44, 44):
+        raise AssertionError(f"swin_s pretraining launches {launches}, expected 44 and 44")
+    return ckpt
+
+
+def phase_head(kind, dev, tmp, smi, mae_ckpt):
+    """The downstream main path through run_voxel_sr / run_voxel_semantics:
+    train from the MAE checkpoint, eval from the head's checkpoint,
+    benchmark; then the graft check, the step's parts with their peak
+    memory and the comparisons with the plain composition. Returns
+    (the train run's launches, the benchmarks, the breakdown)."""
+    module = run_voxel_sr if kind == "sr" else run_voxel_semantics
+    common = ["--dataset", "synthetic", "--backbone_type", "swin_s", "--resolution",
+              str(RES), "--batch_size", str(HEAD_BATCH), "--device", "cuda",
+              "--n_synthetic", str(HEAD_BATCH), "--seed", "0"]
+    weights = None
+    if kind == "sr":
+        common += ["--out_resolution", str(SR_OUT[0])]
+    else:
+        labels = [s["semantics"] for s in run_voxel_semantics.synthetic_semantic_scenes(
+            HEAD_BATCH, RES, NUM_CLASSES, 0)]
+        weights = heads.calculate_class_weights(labels, NUM_CLASSES)
+        path = os.path.join(tmp, "class_weights.npy")
+        np.save(path, weights)
+        log(f"  class weights from the synthetic labels: {np.round(weights, 4).tolist()}")
+        common += ["--num_classes", str(NUM_CLASSES), "--class_weights", path]
+    ckpt = os.path.join(tmp, f"{kind}_ckpt")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = module.main(["--mode", "train", *common, "--steps", str(HEAD_STEPS),
+                       "--mae_checkpoint", mae_ckpt, "--checkpoint_dir", ckpt,
+                       "--log_interval", "1", "--eval_interval", "1000000",
+                       "--ckpt_interval", "1000000"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    history = out["history"]
+    log(f"  train: {HEAD_STEPS} steps in {train_s:.1f} s (data included), losses "
+        f"{[round(h['loss'], 5) for h in history]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in history]}, grids/s with the host's batch "
+        f"{[round(h['grids_per_sec'], 3) for h in history]}, launches {launches}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    want = 22 * HEAD_STEPS
+    if (launches["block"], launches["block_bwd"]) != (want, want):
+        raise AssertionError(f"{kind} train launches {launches}, expected {want} fused-block "
+                             "forward and backward")
+    if len(history) != HEAD_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"{kind} train history not finite: {history}")
+    agg = module.main(["--mode", "eval", *common, "--checkpoint", ckpt])
+    log(f"  eval from the checkpoint: {agg}")
+    if not agg or not all(math.isfinite(v) for v in agg.values()):
+        raise AssertionError(f"{kind} eval from the checkpoint failed: {agg}")
+    benches = []
+    outs = SR_OUT if kind == "sr" else (RES,)
+    for r in outs:
+        extra = ["--out_resolution", str(r)] if kind == "sr" else []
+        torch.cuda.empty_cache()
+        bench = module.main(["--mode", "benchmark", *common, *extra])
+        log(f"  benchmark {RES}^3 -> {r}^3: eval step {bench['ms']:.3f} ms (std "
+            f"{bench['ms_std']:.3f}), {bench['grids_per_sec']:.4f} grids/s, peak memory "
+            f"{bench['peak_mem_gib']:.3f} GiB | {smi}")
+        if not math.isfinite(bench["loss"]):
+            raise AssertionError(f"{kind} benchmark loss not finite")
+        benches.append(bench)
+    torch.cuda.empty_cache()
+
+    cfg = swin_s_cfg()
+    trainer = head_trainer(kind, cfg, dev, weights)
+    mae_sd = load_mae_params(mae_ckpt, cfg)
+    state = trainer.graft_mae(trainer.init(0), mae_sd)
+    base = {k[len("base."):]: v for k, v in state.model.state_dict().items()
+            if k.startswith("base.")}
+    if set(base) != {k for k in mae_sd if k.split(".")[0] in heads.SR_TRUNK_KEYS} or not all(
+            torch.equal(v, mae_sd[k].to(v.device)) for k, v in base.items()):
+        raise AssertionError(f"{kind}: the grafted base differs from the MAE checkpoint")
+    log(f"  graft: all {len(base)} base tensors equal the MAE checkpoint's")
+    batch = head_batch(kind, HEAD_BATCH, dev, seed=23)
+    parts, peaks = head_step_breakdown(kind, trainer, state, batch)
+    step_ms = sum(parts.values())
+    log(f"  train step at batch {HEAD_BATCH} (ms, device timeline): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; total {step_ms:.3f} ({HEAD_BATCH / step_ms * 1e3:.3f} grids/s); peak memory "
+        "per part (GiB): " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()) + f" | {smi}")
+    rows, busy_ms, span_ms = profile_device(lambda: trainer.train_step(state, batch))
+    if not rows:
+        log("  torch.profiler recorded no device time for the train step")
+    else:
+        total = sum(r[0] for r in rows)
+        log(f"  one train step under torch.profiler: device busy {busy_ms:.3f} ms of the "
+            f"{span_ms:.3f} ms from its first to its last device activity (idle share "
+            f"{1 - busy_ms / span_ms:.4f}, profiler overhead included); device time by "
+            f"kernel name, top 12 of {len(rows)}:")
+        for ms, count, key in rows[:12]:
+            log(f"    {ms:9.3f} ms  {100 * ms / total:5.1f}%  x{count:<4d} {key[:120]}")
+    del trainer, state, batch, mae_sd, base
+    torch.cuda.empty_cache()
+    head_compare_with_plain(kind, dev, weights)
+    return launches, benches, (parts, peaks)
 
 
 def main() -> int:
@@ -967,7 +1346,20 @@ def main() -> int:
     log(f"[10] profile: block forward and backward at stage 0 and 2, batch {TRAIN_BATCH}")
     phase_profile(dev)
 
-    log(f"[11] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log(f"[11] swin_s kernel cases: fused block forward and backward vs plain (160^3, "
+        f"batch {HEAD_BATCH})")
+    phase_swin_s_kernels(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[12] voxel super-resolution: swin_s {RES}^3 -> {SR_OUT[0]}^3, batch "
+            f"{HEAD_BATCH}, {HEAD_STEPS} steps from a swin_s MAE checkpoint; benchmarks at "
+            f"{SR_OUT}")
+        mae_ckpt = write_mae_checkpoint(tmp)
+        phase_head("sr", dev, tmp, smi, mae_ckpt)
+        log(f"[13] voxel semantics: swin_s {RES}^3, {NUM_CLASSES} classes, batch "
+            f"{HEAD_BATCH}, {HEAD_STEPS} steps from the same MAE checkpoint")
+        phase_head("semantics", dev, tmp, smi, mae_ckpt)
+
+    log(f"[14] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

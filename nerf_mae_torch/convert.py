@@ -10,7 +10,10 @@ plus the subpixel head, which has no reference name and keeps its own
   Conv    (D, H, W, I, O) -> (O, I, D, H, W)
   ConvT   undo the spatial flip, then (D, H, W, I, O) -> (I, O, D, H, W)
 
-`adamw_state_from_jax` carries an optax adamw state (the moments are trees
+`head_params_from_jax` maps the JAX VoxelSR3D / VoxelSemantics3D trees the
+same way (`base/...` as the MAE, `encoder1/conv*`, `decoder1/...`,
+`voxel_out/conv`, `sem_out/conv`). `adamw_state_from_jax` carries an optax
+adamw state (the moments are trees
 shaped like the parameters, so they map the same way) into the port's
 torch.optim.AdamW.
 """
@@ -124,26 +127,72 @@ def expected_keys(cfg: MAEConfig) -> set:
     return set(SwinMAE3D(cfg, device="meta").state_dict().keys())
 
 
-def params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig) -> Dict[str, torch.Tensor]:
-    """JAX SwinMAE3D params (nested flax tree or the "/"-joined flat form,
-    with or without a leading "params" level) -> the port's state_dict
-    (CPU float32 tensors). Raises on a missing or unknown parameter."""
+def _convert(tree_or_flat: Mapping, map_key, want: set) -> Dict[str, torch.Tensor]:
     flat = flatten_tree(tree_or_flat)
     sd = {}
     for path, value in flat.items():
         path = path[len("params/"):] if path.startswith("params/") else path
         try:
-            name, fn = _map_key(path)
+            name, fn = map_key(path)
         except KeyError:
             raise KeyError(f"unknown JAX parameter {path!r}") from None
         value = np.asarray(value, np.float32)
         sd[name] = torch.from_numpy(np.array(fn(value) if fn else value))
-    _check_keys(sd, cfg)
+    _check_keys(sd, want)
     return sd
 
 
-def _check_keys(sd: Mapping, cfg: MAEConfig) -> None:
-    want = expected_keys(cfg)
+def params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig) -> Dict[str, torch.Tensor]:
+    """JAX SwinMAE3D params (nested flax tree or the "/"-joined flat form,
+    with or without a leading "params" level) -> the port's state_dict
+    (CPU float32 tensors). Raises on a missing or unknown parameter."""
+    return _convert(tree_or_flat, _map_key, expected_keys(cfg))
+
+
+def _map_head_key(path: str) -> Tuple[str, Optional[Callable]]:
+    """A VoxelSR3D / VoxelSemantics3D leaf: `base/` holds the MAE's names;
+    encoder1 is a bare res block (no `res/` level), decoder1 an up block."""
+    if path.startswith("base/"):
+        name, fn = _map_key(path[len("base/"):])
+        return f"base.{name}", fn
+    m = re.fullmatch(r"encoder1/(conv\d)/(kernel|bias)", path)
+    if m:
+        if m.group(2) == "kernel":
+            return f"encoder1.{m.group(1)}.weight", _conv
+        return f"encoder1.{m.group(1)}.bias", None
+    m = re.fullmatch(r"decoder1/(.+)", path)
+    if m:
+        name, fn = _decoder_leaf(m.group(1), "conv_block")
+        return f"decoder1.{name}", fn
+    m = re.fullmatch(r"(voxel_out|sem_out)/conv/(kernel|bias)", path)
+    if m:
+        if m.group(2) == "kernel":
+            return f"{m.group(1)}.conv.weight", _conv
+        return f"{m.group(1)}.conv.bias", None
+    raise KeyError(path)
+
+
+def head_model(cfg: MAEConfig, kind: str, device="cuda", **kw):
+    """VoxelSR3D (kind "sr") or VoxelSemantics3D ("semantics") for `cfg`."""
+    from nerf_mae_torch.models.heads import VoxelSemantics3D, VoxelSR3D
+
+    if kind == "sr":
+        return VoxelSR3D(cfg, device=device, **kw)
+    if kind == "semantics":
+        return VoxelSemantics3D(cfg, device=device, **kw)
+    raise ValueError(f"kind {kind!r} not in ('sr', 'semantics')")
+
+
+def head_params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig,
+                         kind: str) -> Dict[str, torch.Tensor]:
+    """JAX VoxelSR3D (kind "sr") or VoxelSemantics3D ("semantics") params,
+    nested or "/"-flat, -> the port head's state_dict (CPU float32
+    tensors). Raises on a missing or unknown parameter."""
+    want = set(head_model(cfg, kind, device="meta").state_dict().keys())
+    return _convert(tree_or_flat, _map_head_key, want)
+
+
+def _check_keys(sd: Mapping, want: set) -> None:
     missing, extra = want - set(sd), set(sd) - want
     if missing or extra:
         raise KeyError(f"state_dict mismatch: missing {sorted(missing)[:8]}, "

@@ -2,19 +2,25 @@
 nerf_mae_tpu/data/datasets.py that the port needs).
 
 density_to_alpha / scannet_density_to_alpha (reference:
-nerf_rpn/datasets.py:246-248, :410-414); synthetic_scenes, pad_to_cube and
-mae_batch_iterator, the synthetic pretraining feed. The native collate, the
-scene datasets on disk, the prefetch pool and the device-resident corpus
-are not part of the port yet.
+nerf_rpn/datasets.py:246-248, :410-414); the scene datasets on disk
+(`load_split`, `SceneDataset`: a features directory of rgbsigma npz files
+plus box, super-resolution or semantic targets) and their augmentations
+(`augment_scene`, `rotate_and_scale_scene`); synthetic_scenes, pad_to_cube
+and mae_batch_iterator, the pretraining feed. The native collate, the
+prefetch pool and the device-resident corpus are not part of the port yet.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from nerf_mae_torch.ops.patchify import patchify_np
+
+logger = logging.getLogger(__name__)
 
 
 def density_to_alpha(density: np.ndarray) -> np.ndarray:
@@ -25,6 +31,255 @@ def density_to_alpha(density: np.ndarray) -> np.ndarray:
 def scannet_density_to_alpha(density: np.ndarray) -> np.ndarray:
     """Dense-depth-prior NeRF (ReLU activation) variant."""
     return np.clip(1.0 - np.exp(-np.clip(density, 0, None) / 100.0), 0.0, 1.0)
+
+
+def load_split(split_npz: str) -> Dict[str, List[str]]:
+    """Reads {train,val,test}_scenes arrays from a split npz
+    (reference: run_swin_mae3d.py:413-424)."""
+    with np.load(split_npz, allow_pickle=True) as f:
+        return {
+            k.replace("_scenes", ""): [str(s) for s in f[k]]
+            for k in f.files
+            if k.endswith("_scenes")
+        }
+
+
+def _load_rgbsigma(path: str, normalize_density: bool, alpha_fn) -> np.ndarray:
+    with np.load(path) as f:
+        rgbsigma = np.array(f["rgbsigma"])
+    if rgbsigma.dtype == np.uint8:
+        # uint8 grids already store quantized [0,1] values; density->alpha
+        # does not apply (the reference applies it before the cast, which
+        # truncates alpha to 0/1; it is skipped instead)
+        return rgbsigma.astype(np.float32) / 255.0
+    rgbsigma = rgbsigma.astype(np.float32)
+    if normalize_density:
+        rgbsigma[..., -1] = alpha_fn(rgbsigma[..., -1])
+    return rgbsigma  # (W, L, H, C) channel-last
+
+
+class SceneDataset:
+    """Scene-level dataset over a features dir (+ optional targets).
+
+    target kinds (mutually exclusive, like the reference's dataset variants
+    datasets.py:265-348):
+      boxes_path    -> per-scene [N, 6|7] box arrays (detection)
+      out_feat_path -> high-res rgbsigma npz (super-resolution)
+      sem_feat_path -> voxel semantic label npy (segmentation)
+    """
+
+    def __init__(
+        self,
+        features_path: str,
+        scene_list: Optional[Sequence[str]] = None,
+        boxes_path: Optional[str] = None,
+        out_feat_path: Optional[str] = None,
+        sem_feat_path: Optional[str] = None,
+        normalize_density: bool = True,
+        dataset_type: str = "front3d",  # front3d | hypersim | scannet | general
+        flip_prob: float = 0.0,
+        rotate_prob: float = 0.0,
+        rot_scale_prob: float = 0.0,
+        percent_train: float = 1.0,
+        preload: bool = False,
+        seed: int = 0,
+    ):
+        self.features_path = features_path
+        self.boxes_path = boxes_path
+        self.out_feat_path = out_feat_path
+        self.sem_feat_path = sem_feat_path
+        self.normalize_density = normalize_density
+        self.alpha_fn = (
+            scannet_density_to_alpha if dataset_type == "scannet" else density_to_alpha
+        )
+        self.flip_prob = flip_prob
+        self.rotate_prob = rotate_prob
+        self.rot_scale_prob = rot_scale_prob
+        self._rng = np.random.RandomState(seed)
+
+        if scene_list is None:
+            scene_list = sorted(
+                f[:-4] for f in os.listdir(features_path) if f.endswith(".npz")
+            )
+        scene_list = list(scene_list)[: int(percent_train * len(scene_list))]
+        # drop scenes with missing files / empty boxes (reference:
+        # datasets.py:127-143)
+        kept = []
+        for s in scene_list:
+            if not os.path.isfile(os.path.join(features_path, s + ".npz")):
+                logger.warning("%s has no feature file", s)
+                continue
+            if boxes_path is not None:
+                b = np.load(os.path.join(boxes_path, s + ".npy"))
+                if b.shape[0] == 0:
+                    logger.warning("%s has no boxes", s)
+                    continue
+            kept.append(s)
+        self.scenes = kept
+        self._cache = {}
+        if preload:
+            for s in self.scenes:
+                self._cache[s] = self._load(s)
+
+    def __len__(self) -> int:
+        return len(self.scenes)
+
+    def _load(self, scene: str) -> Dict:
+        out: Dict = {"scene": scene}
+        out["rgbsigma"] = _load_rgbsigma(
+            os.path.join(self.features_path, scene + ".npz"),
+            self.normalize_density,
+            self.alpha_fn,
+        )
+        if self.boxes_path is not None:
+            out["boxes"] = np.load(
+                os.path.join(self.boxes_path, scene + ".npy")
+            ).astype(np.float32)
+        if self.out_feat_path is not None:
+            out["out_rgbsigma"] = _load_rgbsigma(
+                os.path.join(self.out_feat_path, scene + ".npz"),
+                self.normalize_density,
+                self.alpha_fn,
+            )
+        if self.sem_feat_path is not None:
+            out["semantics"] = np.load(
+                os.path.join(self.sem_feat_path, scene + ".npy")
+            ).astype(np.int32)
+        return out
+
+    def __getitem__(self, index: int) -> Dict:
+        scene = self.scenes[index]
+        item = self._cache.get(scene)
+        if item is None:
+            item = self._load(scene)
+        item = dict(item)  # shallow copy before augmentation
+        if self.flip_prob > 0 or self.rotate_prob > 0 or self.rot_scale_prob > 0:
+            item = augment_scene(
+                item,
+                self._rng,
+                self.flip_prob,
+                self.rotate_prob,
+                self.rot_scale_prob,
+            )
+        return item
+
+
+def augment_scene(
+    item: Dict,
+    rng: np.random.RandomState,
+    flip_prob: float,
+    rotate_prob: float,
+    rot_scale_prob: float,
+) -> Dict:
+    """z-up flips / rot90 / small rotation+scale, channel-last grids.
+
+    Box math mirrors the reference's augment_rpn_inputs
+    (reference: datasets.py:172-245) on spatial axes (0, 1) of (W, L, H, C).
+    """
+    g = item["rgbsigma"]
+    boxes = item.get("boxes")
+
+    if rng.rand() < rotate_prob:
+        g = np.flip(np.swapaxes(g, 0, 1), axis=0)
+        if boxes is not None:
+            boxes = boxes.copy()
+            if boxes.shape[1] == 6:
+                boxes[:, [0, 1, 3, 4]] = boxes[:, [1, 0, 4, 3]]
+                boxes[:, [0, 3]] = g.shape[0] - boxes[:, [3, 0]]
+            else:
+                boxes[:, [0, 1, 3, 4]] = boxes[:, [1, 0, 4, 3]]
+                boxes[:, 0] = g.shape[0] - boxes[:, 0]
+
+    for axis in (0, 1):
+        if rng.rand() < flip_prob:
+            g = np.flip(g, axis=axis)
+            if boxes is not None:
+                boxes = boxes.copy()
+                if boxes.shape[1] == 6:
+                    boxes[:, [axis, axis + 3]] = (
+                        g.shape[axis] - boxes[:, [axis + 3, axis]]
+                    )
+                else:
+                    boxes[:, axis] = g.shape[axis] - boxes[:, axis]
+                    boxes[:, -1] = -boxes[:, -1]
+
+    if boxes is not None and boxes.shape[1] == 7 and rng.rand() < rot_scale_prob:
+        angle = rng.uniform(-np.pi / 18, np.pi / 18)
+        scale = rng.uniform(0.9, 1.1)
+        g, boxes = rotate_and_scale_scene(np.ascontiguousarray(g), boxes, angle, scale)
+
+    item["rgbsigma"] = np.ascontiguousarray(g)
+    if boxes is not None:
+        item["boxes"] = boxes
+    return item
+
+
+def rotate_and_scale_scene(
+    g: np.ndarray, boxes: Optional[np.ndarray], angle: float, scale: float
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Resample the grid under a z-rotation + uniform scale, trilinear with
+    zero padding, align-corners convention; boxes follow analytically
+    (reference: datasets.py:478-524)."""
+    res = g.shape[:3]
+    xform = (
+        np.array(
+            [
+                [np.cos(angle), -np.sin(angle), 0],
+                [np.sin(angle), np.cos(angle), 0],
+                [0, 0, 1],
+            ],
+            dtype=np.float64,
+        )
+        * scale
+    )
+    # voxel-centered coords: index i -> (2i/(n-1) - 1) * n/2
+    axes = [
+        (2.0 * np.arange(n) / max(n - 1, 1) - 1.0) * n / 2.0 for n in res
+    ]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)  # [W,L,H,3]
+    sample = grid.reshape(-1, 3) @ xform.T  # positions to sample, same coords
+    # back to fractional indices (align_corners=True)
+    idx = np.empty_like(sample)
+    for a in range(3):
+        idx[:, a] = (sample[:, a] / (res[a] / 2.0) + 1.0) / 2.0 * (res[a] - 1)
+
+    out = _trilinear_gather_zeros(g, idx).reshape(*res, g.shape[3])
+
+    if boxes is not None:
+        boxes = boxes.copy()
+        boxes[:, 6] = boxes[:, 6] - angle
+        boxes[:, 3:6] = boxes[:, 3:6] / scale
+        center = np.asarray(res, np.float32)[None] / 2
+        offset = boxes[:, :3] - center
+        boxes[:, :3] = offset @ (xform.astype(np.float32) / (scale * scale)) + center
+    return out.astype(g.dtype), boxes
+
+
+def _trilinear_gather_zeros(g: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Trilinear sample of g [W, L, H, C] at fractional indices idx [M, 3];
+    out-of-range reads contribute zero (grid_sample 'zeros' padding)."""
+    res = g.shape[:3]
+    f = np.floor(idx).astype(np.int64)
+    w = (idx - f).astype(np.float32)
+    out = np.zeros((idx.shape[0], g.shape[3]), np.float32)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                c = f + np.array([dx, dy, dz])
+                weight = (
+                    (w[:, 0] if dx else 1 - w[:, 0])
+                    * (w[:, 1] if dy else 1 - w[:, 1])
+                    * (w[:, 2] if dz else 1 - w[:, 2])
+                )
+                inside = (
+                    (c[:, 0] >= 0) & (c[:, 0] < res[0])
+                    & (c[:, 1] >= 0) & (c[:, 1] < res[1])
+                    & (c[:, 2] >= 0) & (c[:, 2] < res[2])
+                )
+                cc = np.clip(c, 0, np.array(res) - 1)
+                vals = g[cc[:, 0], cc[:, 1], cc[:, 2], :].astype(np.float32)
+                out += vals * (weight * inside)[:, None]
+    return out
 
 
 def synthetic_scenes(n: int, resolution: int = 160, seed: int = 0,

@@ -74,6 +74,28 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1) + bias.to(dtype)
 
 
+def make_patch_partition(cfg: MAEConfig, device) -> nn.ModuleDict:
+    """The patch embedding's conv and LayerNorm (reference `patch_partition`)."""
+    return nn.ModuleDict({
+        "0": Conv3d(cfg.input_channels, cfg.swin.embed_dim, cfg.swin.patch_size[0],
+                    device=device),
+        "2": Norm(cfg.swin.embed_dim, device=device),
+    })
+
+
+def embed_tokens(patch_partition: nn.ModuleDict, grids: torch.Tensor,
+                 cfg: MAEConfig) -> torch.Tensor:
+    """Patch-embed + LayerNorm + pos-embed -> [B, T, T, T, C]. Takes the
+    voxel grid [B, R, R, R, 4], its patched form [B, T, T, T, p^3, 4] or
+    the channel-flat patched form [B, T, T, T, p^3 * 4]."""
+    dt = cfg.dtype
+    grids = maybe_unflatten_patches(grids, cfg.swin.patch_size[0], cfg.input_channels)
+    conv, norm = patch_partition["0"], patch_partition["2"]
+    x = patch_embed(grids, conv.weight, conv.bias, dt)
+    x = flax_layer_norm(x, norm.weight, norm.bias, cfg.swin.norm_eps).to(dt)
+    return x + pos_embed_tensor(cfg.swin.embed_dim, x.shape[1], x.device, dt)
+
+
 class SwinMAE3D(nn.Module):
     """Masked reconstruction (`forward`) and the unmasked feature pyramid
     (`encode`). Parameters are created on `device` (default: the CUDA card)
@@ -85,10 +107,7 @@ class SwinMAE3D(nn.Module):
         dt = cfg.dtype
         e = cfg.swin.embed_dim
         p = cfg.swin.patch_size[0]
-        self.patch_partition = nn.ModuleDict({
-            "0": Conv3d(cfg.input_channels, e, p, device=device),
-            "2": Norm(e, device=device),
-        })
+        self.patch_partition = make_patch_partition(cfg, device)
         self.mask_token = nn.Parameter(torch.empty(e, device=device))
         remat_stages = cfg.remat_stages
         if remat_stages is None:
@@ -109,17 +128,8 @@ class SwinMAE3D(nn.Module):
                                       device=device)
 
     def embed(self, grids: torch.Tensor) -> torch.Tensor:
-        """Patch-embed + LayerNorm + pos-embed -> [B, T, T, T, C]. Takes the
-        voxel grid [B, R, R, R, 4], its patched form [B, T, T, T, p^3, 4] or
-        the channel-flat patched form [B, T, T, T, p^3 * 4]."""
-        cfg = self.cfg
-        dt = cfg.dtype
-        grids = maybe_unflatten_patches(grids, cfg.swin.patch_size[0],
-                                        cfg.input_channels)
-        conv, norm = self.patch_partition["0"], self.patch_partition["2"]
-        x = patch_embed(grids, conv.weight, conv.bias, dt)
-        x = flax_layer_norm(x, norm.weight, norm.bias, cfg.swin.norm_eps).to(dt)
-        return x + pos_embed_tensor(cfg.swin.embed_dim, x.shape[1], x.device, dt)
+        """embed_tokens through this model's patch embedding."""
+        return embed_tokens(self.patch_partition, grids, self.cfg)
 
     def _decode(self, module, *args):
         """A decoder block, under torch.utils.checkpoint with decoder_remat
@@ -184,8 +194,9 @@ def _trunc_normal(shape, std, gen, device):
 
 
 @torch.no_grad()
-def init_weights(model: SwinMAE3D, seed: int) -> SwinMAE3D:
-    """Random weights from `seed`, after the JAX package's initialisers:
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """Random weights from `seed` for SwinMAE3D or a downstream head (the
+    trunk under any prefix), after the JAX package's initialisers:
     truncated normal(0.02) for attention, merge and mask-token weights and
     the bias table, xavier-uniform linears with ~0 biases for the MLP,
     LayerNorm ones/zeros, fan-in normal convs with zero biases."""
@@ -194,7 +205,7 @@ def init_weights(model: SwinMAE3D, seed: int) -> SwinMAE3D:
     gen.manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if ".norm" in name or name.startswith("patch_partition.2"):  # LayerNorms
+        if ".norm" in name or "patch_partition.2." in f".{name}":  # LayerNorms
             p.fill_(1.0 if leaf == "weight" else 0.0)
         elif ".mlp." in name:
             if leaf == "weight":

@@ -5,9 +5,12 @@ the same flag names where the port has the feature; --mode
     python -m nerf_mae_torch.run_mae_pretrain --mode train --dataset synthetic \
         --backbone_type swin_b --resolution 160 --batch_size 8 --steps 100
 
-Only the synthetic dataset is ported so far. Batches are built on the host
-(numpy, patch-major by default) and copied to the card from pinned memory
-with non_blocking. --mode benchmark times 20 synchronized train steps after
+--dataset synthetic draws scenes from a seed; front3d, hypersim and scannet
+read a features directory of rgbsigma npz files (--features_path, split by
+--dataset_split, the training set augmented by --flip_prob / --rotate_prob
+and cut by --percent_train). Batches are built on the host (numpy,
+patch-major by default) and copied to the card from pinned memory with
+non_blocking. --mode benchmark times 20 synchronized train steps after
 one warm-up step on one batch and prints one JSON line (metric, grids/s,
 step_ms, MFU against the H100's dense bf16 peak, peak memory, device); a
 batch that fails to run (out of memory, say) is not retried at a smaller
@@ -25,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from nerf_mae_torch.common import ListDataset, scene_datasets, to_device
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
 from nerf_mae_torch.data import mae_batch_iterator, synthetic_scenes
 from nerf_mae_torch.flops import train_mfu
@@ -41,6 +45,8 @@ def parse_args(argv=None):
     p.add_argument("--mode", default="train", choices=["train", "eval", "benchmark"])
     p.add_argument("--dataset", default="front3d",
                    choices=["front3d", "hypersim", "scannet", "synthetic"])
+    p.add_argument("--features_path", default=None)
+    p.add_argument("--dataset_split", default=None)
     p.add_argument("--backbone_type", default="swin_s", choices=list(SWIN_PRESETS))
     p.add_argument("--resolution", default=160, type=int)
     p.add_argument("--masking_prob", default=0.75, type=float)
@@ -54,6 +60,9 @@ def parse_args(argv=None):
     p.add_argument("--clip_grad_norm", default=0.1, type=float)
     p.add_argument("--compute_dtype", default="bfloat16")
     p.add_argument("--no_remat", action="store_true")
+    p.add_argument("--flip_prob", default=0.0, type=float)
+    p.add_argument("--rotate_prob", default=0.0, type=float)
+    p.add_argument("--percent_train", default=1.0, type=float)
     p.add_argument("--checkpoint_dir", default="checkpoints/mae")
     p.add_argument("--checkpoint", default=None, help="resume/eval checkpoint dir")
     p.add_argument("--log_interval", default=10, type=int)
@@ -75,38 +84,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-class _Scenes:
-    def __init__(self, scenes):
-        self.scenes = scenes
-
-    def __len__(self):
-        return len(self.scenes)
-
-    def __getitem__(self, i):
-        return {"rgbsigma": self.scenes[i]}
-
-
 def build_datasets(args):
-    """(train, val) synthetic scenes; the val draw is disjoint (seed offset)
-    so eval PSNR measures generalization."""
+    """(train, val): synthetic scenes, the val draw disjoint (seed offset) so
+    eval PSNR measures generalization; or the scenes on disk, the training
+    set augmented and cut by --percent_train."""
     if args.dataset != "synthetic":
-        raise SystemExit(f"--dataset {args.dataset}: only --dataset synthetic "
-                         "is ported so far")
+        return scene_datasets(args, train_only=dict(
+            flip_prob=args.flip_prob, rotate_prob=args.rotate_prob,
+            percent_train=args.percent_train))
     n_val = args.n_synthetic_val or max(args.n_synthetic // 4, 2)
-    return (_Scenes(synthetic_scenes(args.n_synthetic, args.resolution, args.seed)),
-            _Scenes(synthetic_scenes(n_val, args.resolution, args.seed + 10_000)))
-
-
-def to_device(batch, device: torch.device):
-    """Host numpy batch -> tensors on `device`; to a card through pinned
-    memory with a non-blocking copy."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(v)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
+    mk = lambda n, seed: ListDataset(
+        [{"rgbsigma": g} for g in synthetic_scenes(n, args.resolution, seed)])
+    return mk(args.n_synthetic, args.seed), mk(n_val, args.seed + 10_000)
 
 
 def device_slug(device: torch.device) -> str:

@@ -5,7 +5,8 @@ One directory per step under the checkpoint directory: `state.pt` holds the
 step, the parameters (the model's state_dict) and, for a resumable run, the
 optimizer's state_dict (torch.save; read back with weights_only=True);
 `extra.json` holds the optional metrics. Only the newest `keep` steps stay.
-The trunk is the parameters under the port's trunk names.
+The trunk is the parameters under the port's trunk names; `graft_mae`
+copies it with the MAE's decoder4/3/2 into a downstream head's `base`.
 """
 
 from __future__ import annotations
@@ -90,3 +91,21 @@ def load_trunk_into(params: Dict[str, torch.Tensor],
                              f"{tuple(v.shape)} vs {tuple(out[k].shape)}")
         out[k] = v
     return out
+
+
+def graft_mae(head_params: Dict[str, torch.Tensor],
+              mae_params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Copy the pretrained MAE trunk AND decoder4/3/2 (models.heads
+    SR_TRUNK_KEYS) into a VoxelSR3D / VoxelSemantics3D state dict's `base`
+    (reference: feature_extractor.py:2008-2012, only decoder1 / out / mask
+    token are re-initialized). Every `base` entry must come from the MAE
+    (KeyError otherwise, or for a MAE entry the head lacks) with its shape
+    (ValueError)."""
+    from nerf_mae_torch.models.heads import SR_TRUNK_KEYS
+
+    trunk = {f"base.{k}": v for k, v in mae_params.items()
+             if k.split(".")[0] in SR_TRUNK_KEYS}
+    missing = sorted(k for k in head_params if k.startswith("base.") and k not in trunk)
+    if missing:
+        raise KeyError(f"the MAE parameters lack {missing[:8]}")
+    return load_trunk_into(head_params, trunk)

@@ -46,7 +46,7 @@ _MASK, _DROPPATH, _EVAL = 0, 1, 0x45564C
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: SwinMAE3D
+    model: torch.nn.Module
     optimizer: torch.optim.AdamW
     seed: int
 
@@ -57,7 +57,10 @@ def stream_seed(seed: int, step: int, stream: int) -> int:
     return (int(state[0]) << 31) ^ int(state[1])
 
 
-class MAETrainer:
+class Trainer:
+    """What the MAE and the downstream trainers share: the schedule, the
+    clip, per-step generators and the optimizer update."""
+
     def __init__(self, mae_cfg: MAEConfig, train_cfg: TrainConfig,
                  total_steps: int, device="cuda"):
         self.mae_cfg = mae_cfg
@@ -68,10 +71,13 @@ class MAETrainer:
         self.clip = (clip_with_nonfinite_guard if train_cfg.skip_nonfinite_updates
                      else clip_by_global_norm)
 
+    def _build_model(self) -> torch.nn.Module:
+        raise NotImplementedError
+
     def init(self, seed: int) -> TrainState:
-        model = init_weights(SwinMAE3D(self.mae_cfg, device=self.device), seed)
+        model = init_weights(self._build_model(), seed)
         n = sum(p.numel() for p in model.parameters())
-        logger.info("initialized SwinMAE3D with %d params", n)
+        logger.info("initialized %s with %d params", type(model).__name__, n)
         return TrainState(0, model.train(),
                           make_optimizer(model.parameters(), self.train_cfg), seed)
 
@@ -79,6 +85,31 @@ class MAETrainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(stream_seed(seed, step, stream))
         return gen
+
+    def _update(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+        """Backward of `loss`, the clip (a parameter without a gradient gets
+        zeros) and an AdamW step at the scheduled lr; advances the step.
+        Returns the gradient norm before clipping."""
+        model, opt = state.model, state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = []
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        grad_norm = self.clip(grads, self.train_cfg.clip_grad_norm)
+        lr = self.schedule(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step += 1
+        return grad_norm
+
+
+class MAETrainer(Trainer):
+    def _build_model(self) -> SwinMAE3D:
+        return SwinMAE3D(self.mae_cfg, device=self.device)
 
     def _losses(self, model, batch, deterministic, generator, droppath,
                 token_mask=None):
@@ -94,25 +125,13 @@ class MAETrainer:
         """One optimizer step; returns (state, metrics) with the metrics as
         0-d device tensors (loss, loss_rgb, loss_alpha, grad_norm: the norm
         before clipping). `token_mask` replaces the drawn mask (tests)."""
-        model, opt = state.model, state.optimizer
+        model = state.model
         model.train()
         loss, aux, _, _ = self._losses(
             model, batch, False,
             self._generator(state.seed, state.step, _MASK),
             self._generator(state.seed, state.step, _DROPPATH), token_mask)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = []
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        grad_norm = self.clip(grads, self.train_cfg.clip_grad_norm)
-        lr = self.schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
+        grad_norm = self._update(state, loss)
         return state, {"loss": loss.detach(), "loss_rgb": aux["loss_rgb"].detach(),
                        "loss_alpha": aux["loss_alpha"].detach(),
                        "grad_norm": grad_norm}

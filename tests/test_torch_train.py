@@ -433,7 +433,8 @@ def test_cli_cuda_without_card_raises(monkeypatch):
 
 
 def test_cli_other_datasets_refused():
-    with pytest.raises(SystemExit):
+    """A dataset on disk is refused without its features directory."""
+    with pytest.raises(SystemExit, match="features_path"):
         run_mae_pretrain.main(["--mode", "train", "--dataset", "front3d", "--device", "cpu"])
 
 
