@@ -61,7 +61,22 @@ Phases (any failure raises and the exit code is not 0):
  13. voxel semantics: the same at 19 classes, with class weights from
      calculate_class_weights on the synthetic training labels; eval prints
      mIoU / mAcc / allAcc;
- 14. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 14. FCOS detection (OBB, swin_s 160^3, batch 8, the flags of
+     launch/train_fcos_pretrained.sh): `nerf_mae_torch.run_fcos.main` trains
+     4 steps from the same MAE checkpoint (finite losses, positives in
+     every step, 22 fused-block forward and 22 backward launches per step),
+     `--mode eval` reads its checkpoint back (AP25/50/75, recall, AR),
+     `--mode benchmark` times the prediction step, OBB and AABB; the graft
+     is verified; the parts of a train step (device timeline) and of a
+     prediction step (body, head, top-k + decode, NMS + final top-k) with
+     their peak memory; the NMS's parts (suppress matrix, greedy scan on the
+     device and on the host) on the random-weight candidates and on as many
+     clustered on the scenes' boxes; one train step under torch.profiler;
+     batch-1 outputs and a float32 step's gradients against the plain
+     composition; the post-processing on the card against the CPU, with
+     an NMS case where suppression decides what is kept (suppress-matrix
+     flips only within 1e-5 of the threshold, kept sets equal up to them);
+ 15. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -83,11 +98,20 @@ import time
 import numpy as np
 import torch
 
-from nerf_mae_torch import (inference, kernels, run_mae_pretrain, run_voxel_semantics,
-                            run_voxel_sr)
+from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain,
+                            run_voxel_semantics, run_voxel_sr)
 from nerf_mae_torch.common import load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
+from nerf_mae_torch.data import detection_batch_iterator, synthetic_detection_scenes
 from nerf_mae_torch.models import heads
+from nerf_mae_torch.models.detector import FCOSDetector
+from nerf_mae_torch.models.fcos import (
+    FCOSConfig,
+    fcos_candidates,
+    fcos_loss,
+    fcos_select,
+    nms_boxes,
+)
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
 from nerf_mae_torch.ops.fused_attention import (
     fused_window_attention,
@@ -101,8 +125,12 @@ from nerf_mae_torch.ops.fused_block import (
     fused_swin_block_bwd_plain,
     fused_swin_block_plain,
 )
+from nerf_mae_torch.ops import nms
 from nerf_mae_torch.ops.masking import block_mask_3d
+from nerf_mae_torch.ops.rotated_iou import iou_3d
 from nerf_mae_torch.train import optim
+from nerf_mae_torch.train.checkpoint import extract_trunk
+from nerf_mae_torch.train.det_trainer import DetectionTrainer
 from nerf_mae_torch.train.head_trainer import VoxelSemanticsTrainer, VoxelSRTrainer
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, float32 FMA units,
@@ -1275,6 +1303,502 @@ def phase_head(kind, dev, tmp, smi, mae_ckpt):
     return launches, benches, (parts, peaks)
 
 
+# FCOS detection (phase 14): launch/train_fcos_pretrained.sh's flags
+FCOS_STEPS = 4
+FCOS_FLAGS = ("--rotated_bbox", "--iou_loss_type", "iou", "--center_sampling_radius", "1.5",
+              "--lr", "1e-4", "--weight_decay", "1e-3", "--flip_prob", "0.5",
+              "--rotate_prob", "0.5", "--rot_scale_prob", "0.5")
+NMS_FLIP_TOL = 1e-5  # a suppress entry may flip between devices this close to the threshold
+NMS_CPU_CLUSTER = 1500  # clustered candidates of the card-vs-CPU NMS case (seconds on the CPU)
+
+
+def fcos_config(**kw) -> FCOSConfig:
+    """The FCOSConfig run_fcos builds from FCOS_FLAGS (OBB, IoU loss, centre
+    sampling 1.5, run_fcos's NMS defaults) at RES."""
+    return FCOSConfig(**{**dict(resolution=RES, use_obb=True, iou_loss_type="iou",
+                                center_sampling_radius=1.5), **kw})
+
+
+def fcos_tower_flops(resolution, batch, width=256, num_convs=4, strides=(4, 8, 16, 32)):
+    """FLOPs of one forward of the FCOS towers: 2 x num_convs 3^3 convs of
+    width -> width over every level's grid (2 * 27 * width^2 per voxel), and
+    the three output convs (1 + 8 + 1 channels)."""
+    voxels = sum(math.ceil(resolution / s) ** 3 for s in strides) * batch
+    return voxels * 2 * 27 * width * (2 * num_convs * width + 10)
+
+
+def nms_flips(sup_a, sup_b, iou_of_pair, threshold):
+    """Entries above the diagonal (all that the greedy scan reads) where two
+    suppress matrices (the same boxes in the same order, built on two
+    devices) disagree: (count, the largest |IoU - threshold| among them,
+    from iou_of_pair(j, i), and the first candidate in visiting order whose
+    keep such an entry can decide: the smallest i, or N without one). A flip
+    is a rounding difference only when that distance is below NMS_FLIP_TOL."""
+    sup_a = np.asarray(sup_a)
+    j, i = np.nonzero(np.triu(sup_a != np.asarray(sup_b), k=1))
+    worst = max((abs(float(iou_of_pair(a, b)) - threshold) for a, b in zip(j, i)), default=0.0)
+    return len(j), worst, int(i.min()) if len(i) else sup_a.shape[0]
+
+
+def clustered_candidates(gt_boxes, gt_valid, n, seed, jitter=0.25):
+    """NMS candidates as a trained detector leaves them, clustered on the
+    objects: n per scene, each a valid GT OBB of its scene jittered (centre
+    by jitter x size per axis, sizes by exp(jitter x N(0, 1)), heading by
+    jitter rad), scored higher the smaller its jitter. numpy gt_boxes [B, G,
+    7], gt_valid [B, G] -> boxes [B, n, 7], scores [B, n] (float32)."""
+    rs = np.random.RandomState(seed)
+    boxes = np.zeros((gt_boxes.shape[0], n, 7), np.float32)
+    scores = np.zeros((gt_boxes.shape[0], n), np.float32)
+    for s, (gt, ok) in enumerate(zip(gt_boxes, gt_valid)):
+        pick = gt[ok][rs.randint(0, int(ok.sum()), n)]
+        z = rs.normal(0.0, 1.0, (n, 7))
+        boxes[s, :, :3] = pick[:, :3] + jitter * z[:, :3] * pick[:, 3:6]
+        boxes[s, :, 3:6] = pick[:, 3:6] * np.exp(jitter * z[:, 3:6])
+        boxes[s, :, 6] = pick[:, 6] + jitter * z[:, 6]
+        scores[s] = np.exp(-0.5 * (z ** 2).mean(1))
+    return boxes, scores
+
+
+def scan_rounds(suppress, valid):
+    """The rounds nms.greedy_keep's fixed-point iteration takes on these
+    inputs (the longest suppression chain plus one), counted by repeating
+    it one round at a time."""
+    s = torch.triu(suppress, diagonal=1).float()
+    keep, rounds = valid, 0
+    while True:
+        rounds += 1
+        prev, keep = keep, valid & ~((keep.float() @ s) > 0)
+        if torch.equal(keep, prev):
+            return rounds
+
+
+def host_scan(suppress, valid):
+    """The greedy scan on the host over the copied suppress matrix: the rows
+    of kept boxes that suppress anything, in visiting order. Returns keep
+    [N] bool (numpy)."""
+    sup = suppress.cpu().numpy()
+    keep = valid.cpu().numpy().copy()
+    for j in np.flatnonzero(sup.any(1)):
+        if keep[j]:
+            keep &= ~sup[j]
+    return keep
+
+
+@torch.no_grad()
+def nms_study(boxes, scores, valid, threshold):
+    """The NMS of a batch of candidate sets (OBBs on the card), scene by
+    scene, in its parts, each timed on the wall clock with a synchronize
+    after it and summed over the scenes (ms, the second of two passes): the
+    suppress matrix (nms.suppress_matrix), the greedy scan as nms.greedy_keep
+    runs it on the device, and the same scan on the host over the copied
+    matrix (host_scan). Also the share of candidate pairs whose extents
+    overlap (the pairs whose rotated IoU is computed), the suppressing
+    pairs, the fixed-point rounds per scene and the boxes kept (before
+    post_nms_top_n). The two scans must agree."""
+    out = {}
+    for rep in range(2):
+        t = {"matrix": 0.0, "device scan": 0.0, "host scan": 0.0}
+        out = {"overlapping": 0, "pairs": 0, "suppressing": 0, "kept": 0, "rounds": []}
+        for i in range(boxes.shape[0]):
+            order = nms.sort_desc(torch.where(valid[i], scores[i],
+                                              torch.full_like(scores[i], -math.inf)))
+            bx, vd = boxes[i][order], valid[i][order]
+
+            def timed(name, fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                t[name] += (time.perf_counter() - t0) * 1e3
+                return res
+
+            sup = timed("matrix", lambda: nms.suppress_matrix(bx, threshold))
+            keep = timed("device scan", lambda: nms.greedy_keep(sup, vd))
+            want = timed("host scan", lambda: host_scan(sup, vd))
+            if not np.array_equal(keep.cpu().numpy(), want):
+                raise AssertionError("the device's greedy scan disagrees with the host's")
+            if rep:
+                n = bx.shape[0]
+                rows = max(1, nms.PAIRS_PER_CHUNK // n)
+                col = torch.arange(n, device=bx.device)
+                out["overlapping"] += sum(
+                    int((nms.extents_overlap(bx, slice(s, s + rows))
+                         & (col[None] > col[s: s + rows, None])).sum())
+                    for s in range(0, n, rows))
+                out["pairs"] += n * (n - 1) // 2
+                out["suppressing"] += int(sup.sum())
+                out["kept"] += int(want.sum())
+                out["rounds"].append(scan_rounds(sup, vd))
+    return {**out, **t}
+
+
+def nms_against_cpu(boxes, scores, valid, threshold, cap):
+    """One scene's NMS (OBB candidates on the card) against the same
+    function on the CPU from the same candidates: the suppress matrices may
+    differ only where |IoU - threshold| < NMS_FLIP_TOL; each device's keep
+    mask (nms.nms_mask) must be host_scan of its own matrix, capped at
+    `cap`; and the kept sets must agree in visiting order up to the first
+    candidate a differing entry can decide, so that every difference traces
+    back to a flip. Returns the flips, the largest |IoU - threshold| among
+    them, the suppressing pairs, the boxes kept on the card and on the CPU,
+    the boxes kept by one only, and the CPU's seconds for its matrix."""
+    order = nms.sort_desc(torch.where(valid, scores, torch.full_like(scores, -math.inf)))
+    bx, vd = boxes[order], valid[order]
+    bx_cpu = bx.cpu()
+    t0 = time.perf_counter()
+    sup_cpu = nms.suppress_matrix(bx_cpu, threshold)
+    cpu_s = time.perf_counter() - t0
+    sup_card = nms.suppress_matrix(bx, threshold)
+    flips, worst, first = nms_flips(sup_card.cpu().numpy(), sup_cpu.numpy(),
+                                    lambda j, i: iou_3d(bx_cpu[j], bx_cpu[i]), threshold)
+    if worst >= NMS_FLIP_TOL:
+        raise AssertionError(f"suppress matrices differ away from the threshold ({worst:.2e})")
+    keep_card = nms.nms_mask(boxes, scores, threshold, valid, cap)[order].cpu().numpy()
+    keep_cpu = nms.nms_mask(boxes.cpu(), scores.cpu(), threshold, valid.cpu(),
+                            cap)[order.cpu()].numpy()
+    for keep, sup in ((keep_card, sup_card), (keep_cpu, sup_cpu)):
+        want = host_scan(sup, vd)
+        if not np.array_equal(keep, want & (np.cumsum(want) <= cap)):
+            raise AssertionError("an NMS keep mask is not the greedy scan of its suppress matrix")
+    if not np.array_equal(keep_card[:first], keep_cpu[:first]):
+        raise AssertionError("the kept sets differ before the first flipped suppress entry")
+    return (flips, worst, int(sup_card.sum()), int(keep_card.sum()), int(keep_cpu.sum()),
+            int((keep_card != keep_cpu).sum()), cpu_s)
+
+
+def det_param_group(name: str) -> str:
+    """body.<param_group of the trunk name>, body.fpn, and the head's
+    modules without their index (head.cls_tower, head.box_gn, ...)."""
+    parts = name.split(".")
+    if parts[0] == "body" and parts[1] != "fpn":
+        return "body." + param_group(".".join(parts[1:]))
+    return f"{parts[0]}.{parts[1].rstrip('0123456789')}"
+
+
+def det_batch(batch, dev, seed, obb=True):
+    """A detection batch of synthetic scenes at RES (run_fcos's draw), as
+    tensors on the card."""
+    scenes = synthetic_detection_scenes(batch, RES, seed, obb=obb)
+    host = next(detection_batch_iterator(scenes, batch, RES, shuffle=False))
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def fcos_step_breakdown(trainer, state, batch):
+    """CUDA-event times (ms) of the parts of one detection train step on the
+    device timeline, medians of 3 steps after a warm-up: body (trunk + FPN),
+    head (towers and output convs), targets + loss, backward, clip + AdamW;
+    and the peak allocated memory within each part (GiB, last step)."""
+    model, cfg = state.model, trainer.fcos
+    model.train()
+    names = ("body", "head", "targets+loss", "backward", "clip+adamw")
+    parts = {k: [] for k in names}
+    peaks = {}
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(41)
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def mark(i):
+            ev[i].record()
+            if i:
+                peaks[names[i - 1]] = torch.cuda.max_memory_allocated() / 2**30
+                torch.cuda.reset_peak_memory_stats()
+
+        mark(0)
+        feats = model.body(batch["grids"], False, gen)
+        mark(1)
+        outs = model.head(feats)
+        mark(2)
+        loss, _ = fcos_loss(cfg, *outs, batch["gt_boxes"], batch["gt_valid"], batch["sizes"])
+        mark(3)
+        del feats, outs
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark(4)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in model.parameters()]
+        optim.clip_with_nonfinite_guard(grads, 0.1)
+        state.optimizer.step()
+        mark(5)
+        ev[-1].synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: statistics.median(v) for k, v in parts.items()}, peaks
+
+
+@torch.no_grad()
+def fcos_predict_breakdown(trainer, state, batch):
+    """Wall-clock times (ms, each part closed by a synchronize; medians of 2
+    after a warm-up) of one prediction step: body, head, the per-level top-k
+    and decode (fcos_candidates), NMS and the final top-k (fcos_select); the
+    peak memory per part (GiB); the last step's candidates (nms_study splits
+    their NMS into its parts) and the detections kept."""
+    model, cfg = state.model, trainer.fcos
+    model.eval()
+    names = ("body", "head", "top-k+decode", "nms+final top-k")
+    parts = {k: [] for k in names}
+    peaks = {}
+    for rep in range(3):
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if rep:
+                parts[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = max(peaks.get(name, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            return out
+
+        feats = timed("body", lambda: model.body(batch["grids"]))
+        outs = timed("head", lambda: model.head(feats))
+        cand = timed("top-k+decode", lambda: fcos_candidates(cfg, *outs, batch["sizes"]))
+        det = timed("nms+final top-k", lambda: fcos_select(cfg, cand))
+    return ({k: statistics.median(v) for k, v in parts.items()}, peaks, cand,
+            int(det["valid"].sum()))
+
+
+def fcos_compare_with_plain(dev, mae_sd):
+    """Batch 1 (swin_s, 160^3, OBB, the MAE trunk grafted): the detector's
+    bf16 outputs (every level's logits, regression and centerness) through
+    the kernels against the plain composition (rel L2 <= 5e-2, 22 fused-block
+    launches); one float32 train step's gradients by group, kernels against
+    plain (<= 1e-2, loss 1e-4, 22 + 22 launches); and the post-processing of
+    the kernel run's head outputs on the card against the same function on
+    the CPU: candidate scores to rtol 1e-5, then the same candidates' NMS
+    (nms_against_cpu), then the final detections (equal, scores to rtol
+    1e-5, where the keep masks agree); and nms_against_cpu again on
+    NMS_CPU_CLUSTER candidates clustered on the scene's boxes, where
+    suppression decides what is kept."""
+    swin = SWIN_PRESETS["swin_s"]
+    cfg = fcos_config()
+    batch = det_batch(1, dev, seed=43)
+    state = None
+    outs = {}
+    for dtype in ("bfloat16", "float32"):
+        for impl in ("auto", "plain"):
+            model = FCOSDetector(dataclasses.replace(swin, attention_impl=impl), cfg,
+                                 "swin_s", dtype=getattr(torch, dtype), device=dev)
+            if state is None:
+                model.init_weights(1)
+                sd = model.state_dict()
+                sd.update({f"body.{k}": v.to(dev) for k, v in extract_trunk(mae_sd).items()})
+                state = sd
+            model.load_state_dict(state)
+            reset_launches()
+            if dtype == "bfloat16":
+                with torch.no_grad():
+                    outs[impl] = model.eval().head(model.body(batch["grids"]))
+                torch.cuda.synchronize()
+                launches = read_launches()
+                if impl == "auto" and launches["block"] != 22:
+                    raise AssertionError(f"FCOS batch-1 forward launches {launches}")
+                continue
+            dp = torch.Generator(device=dev)
+            dp.manual_seed(7)
+            model.train()
+            loss, _ = model(batch["grids"], batch["sizes"], batch["gt_boxes"], batch["gt_valid"],
+                            deterministic=False, training=True, droppath_generator=dp)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if impl == "auto" and (launches["block"], launches["block_bwd"]) != (22, 22):
+                raise AssertionError(f"FCOS float32 step launches {launches}, expected 22 + 22")
+            outs["f32", impl] = (loss.item(), {
+                n: p.grad.float() for n, p in model.named_parameters()
+                if p.grad is not None and torch.isfinite(p.grad).all()})
+            if len(outs["f32", impl][1]) != len(list(model.parameters())):
+                raise AssertionError(f"FCOS {impl}: a parameter got no finite gradient")
+            del model, loss
+    rels = []
+    for name, got_l, want_l in zip(("logits", "bbox", "centerness"), outs["auto"], outs["plain"]):
+        for lvl, (g, w) in enumerate(zip(got_l, want_l)):
+            _, rel, _ = errors(g, w)
+            if not torch.isfinite(g).all() or rel > 5e-2:
+                raise AssertionError(f"FCOS {name} level {lvl}: rel L2 {rel:.3e} against plain")
+            rels.append(f"{name}{lvl} {rel:.2e}")
+    log("  FCOS batch-1 bf16 outputs, kernels vs plain composition (rel L2, tol 5e-2): "
+        + ", ".join(rels))
+    (loss_k, grads_k), (loss_p, grads_p) = outs["f32", "auto"], outs["f32", "plain"]
+    num, den = {}, {}
+    for name, w in grads_p.items():
+        grp = det_param_group(name)
+        num[grp] = num.get(grp, 0.0) + (grads_k[name] - w).norm().item() ** 2
+        den[grp] = den.get(grp, 0.0) + w.norm().item() ** 2
+    grel = {g: math.sqrt(num[g] / max(den[g], 1e-30)) for g in num}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  FCOS batch-1 float32 train step, kernels vs plain: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} (rel {loss_rel:.2e}, tol {F32_LOSS_TOL:.0e}); gradients by group (tol "
+        f"{F32_GRAD_TOL:.0e}): " + ", ".join(f"{k} {v:.2e}" for k, v in grel.items()))
+    if loss_rel > F32_LOSS_TOL or max(grel.values()) > F32_GRAD_TOL:
+        raise AssertionError("FCOS float32 kernel gradients disagree with plain")
+    del outs["f32", "auto"], outs["f32", "plain"], grads_k, grads_p
+
+    # the post-processing on the card against the same function on the CPU
+    heads_card = outs["auto"]
+    heads_cpu = [[x.cpu() for x in xs] for xs in heads_card]
+    cand = fcos_candidates(cfg, *heads_card, batch["sizes"])
+    cand_cpu = fcos_candidates(cfg, *heads_cpu, batch["sizes"].cpu())
+    sc, sc_cpu = (c["scores"][c["valid"]].sort(descending=True).values.cpu()
+                  for c in (cand, cand_cpu))
+    if sc.shape != sc_cpu.shape or not torch.allclose(sc, sc_cpu, rtol=1e-5, atol=0):
+        raise AssertionError("FCOS candidate scores differ between the card and the CPU")
+    same = {k: v.cpu() for k, v in cand.items()}  # the card's candidates, on the CPU
+    gt, gv = batch["gt_boxes"].cpu().numpy(), batch["gt_valid"].cpu().numpy()
+    cb, cs = clustered_candidates(gt, gv, NMS_CPU_CLUSTER, seed=48)
+    cases = {
+        "random-weight head outputs": (cand["boxes"][0], cand["scores"][0], cand["valid"][0]),
+        f"{NMS_CPU_CLUSTER} candidates clustered on the boxes": (
+            torch.from_numpy(cb[0]).to(dev), torch.from_numpy(cs[0]).to(dev),
+            torch.from_numpy(np.arange(NMS_CPU_CLUSTER) % 7 != 3).to(dev)),
+    }
+    diffs = []
+    for name, (bx, sc_, vd) in cases.items():
+        flips, worst, supp, n_card, n_cpu, diff, cpu_s = nms_against_cpu(
+            bx, sc_, vd, cfg.nms_thresh, cfg.post_nms_top_n)
+        diffs.append(diff)
+        log(f"  FCOS NMS, card vs CPU, {name}: {int(vd.sum())} candidates, {supp} suppressing "
+            f"pairs; suppress entries that differ {flips} (largest |IoU - {cfg.nms_thresh}| "
+            f"{worst:.2e}, tol {NMS_FLIP_TOL:.0e}); kept {n_card} on the card, {n_cpu} on the "
+            f"CPU (cap {cfg.post_nms_top_n}), {diff} kept by one only, each the greedy scan of "
+            f"its own matrix (the CPU's matrix took {cpu_s:.1f} s)")
+    if not 0 < n_card < int(vd.sum()) // 4:
+        raise AssertionError(f"clustered NMS case: {n_card} kept; suppression decided nothing")
+    keep_card, keep_cpu = fcos_select(cfg, cand), fcos_select(cfg, same)
+    if diffs[0] == 0 and not (torch.equal(keep_card["valid"].cpu(), keep_cpu["valid"])
+                              and torch.allclose(keep_card["scores"].cpu(), keep_cpu["scores"],
+                                                 rtol=1e-5, atol=0)):
+        raise AssertionError("FCOS detections differ between the card and the CPU")
+    del heads_card, heads_cpu, outs, state
+    torch.cuda.empty_cache()
+
+
+def phase_fcos(dev, tmp, smi, mae_ckpt):
+    """FCOS detection through run_fcos (OBB, swin_s 160^3, batch 8, the
+    flags of launch/train_fcos_pretrained.sh): train from the MAE
+    checkpoint, eval from the detector's checkpoint, benchmark (OBB and
+    AABB); the graft check, the parts of a train step and of a prediction
+    step with their peak memory, one step under torch.profiler, and the
+    comparisons with the plain composition and the CPU."""
+    common = ["--dataset", "synthetic", "--backbone_type", "swin_s", "--resolution", str(RES),
+              "--batch_size", str(HEAD_BATCH), "--device", "cuda", "--n_synthetic",
+              str(HEAD_BATCH), "--seed", "0"]
+    ckpt = os.path.join(tmp, "fcos_ckpt")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_fcos.main(["--mode", "train", *common, *FCOS_FLAGS, "--steps", str(FCOS_STEPS),
+                         "--mae_checkpoint", mae_ckpt, "--checkpoint_dir", ckpt,
+                         "--log_interval", "1", "--eval_interval", "1000000",
+                         "--ckpt_interval", "1000000"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    history = out["history"]
+    log(f"  train: {FCOS_STEPS} steps in {train_s:.1f} s (data included), losses "
+        f"{[round(h['loss'], 5) for h in history]} (cls "
+        f"{[round(h['loss_cls'], 4) for h in history]}, reg "
+        f"{[round(h['loss_reg'], 4) for h in history]}, ctr "
+        f"{[round(h['loss_centerness'], 4) for h in history]}), num_pos "
+        f"{[int(h['num_pos']) for h in history]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in history]}, grids/s with the host's batch "
+        f"{[round(h['grids_per_sec'], 3) for h in history]}, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    want = 22 * FCOS_STEPS
+    if (launches["block"], launches["block_bwd"]) != (want, want):
+        raise AssertionError(f"FCOS train launches {launches}, expected {want} fused-block "
+                             "forward and backward")
+    if len(history) != FCOS_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["num_pos"] > 0
+            for h in history):
+        raise AssertionError(f"FCOS train history not finite or without positives: {history}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    agg = run_fcos.main(["--mode", "eval", *common, *FCOS_FLAGS, "--checkpoint", ckpt])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  eval from the checkpoint ({eval_ms:.1f} ms for the run_fcos call, model set-up "
+        f"and data included): AP25 {agg.get('ap25')}, AP50 {agg.get('ap50')}, AP75 "
+        f"{agg.get('ap75')}; " + ", ".join(f"{k} {v:.4f}" for k, v in agg.items()
+                                            if k.startswith(("recall", "ar_"))))
+    if not agg or not all(math.isfinite(v) and 0 <= v <= 1 for v in agg.values()):
+        raise AssertionError(f"FCOS eval from the checkpoint failed: {agg}")
+    benches = {}
+    for kind, flags in (("obb", FCOS_FLAGS), ("aabb", FCOS_FLAGS[1:])):
+        torch.cuda.empty_cache()
+        bench = run_fcos.main(["--mode", "benchmark", *common, *flags])
+        log(f"  benchmark {kind}: predict step {bench['ms']:.3f} ms (std {bench['ms_std']:.3f}), "
+            f"{bench['grids_per_sec']:.4f} grids/s, peak memory {bench['peak_mem_gib']:.3f} GiB, "
+            f"{bench['detections_per_scene']:.1f} detections per scene | {smi}")
+        benches[kind] = bench
+    torch.cuda.empty_cache()
+
+    cfg = fcos_config()
+    trainer = DetectionTrainer(SWIN_PRESETS["swin_s"], cfg, TrainConfig(), 100, dev)
+    state = trainer.init(0)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    mae_sd = load_mae_params(mae_ckpt, swin_s_cfg())
+    trunk = {f"body.{k}": v for k, v in extract_trunk(mae_sd).items()}
+    state = trainer.graft_mae_trunk(state, mae_sd)
+    sd = state.model.state_dict()
+    if not trunk or not all(torch.equal(sd[k], v.to(dev)) for k, v in trunk.items()) or not all(
+            torch.equal(v, before[k]) for k, v in sd.items() if k not in trunk):
+        raise AssertionError("FCOS: the grafted body differs from the MAE checkpoint's trunk, "
+                             "or the graft touched the FPN or the head")
+    log(f"  graft: all {len(trunk)} trunk tensors equal the MAE checkpoint's; the other "
+        f"{len(sd) - len(trunk)} (FPN, head) are untouched")
+    del before, sd
+    batch = det_batch(HEAD_BATCH, dev, seed=45)
+    parts, peaks = fcos_step_breakdown(trainer, state, batch)
+    step_ms = sum(parts.values())
+    tower = fcos_tower_flops(RES, HEAD_BATCH)
+    log(f"  train step at batch {HEAD_BATCH} (ms, device timeline): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; total {step_ms:.3f} ({HEAD_BATCH / step_ms * 1e3:.3f} grids/s); head towers "
+        f"{tower / 1e12:.2f} TFLOP forward, {tower / parts['head'] / 1e9:.1f} TFLOP/s; peak "
+        "memory per part (GiB): " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items())
+        + f" | {smi}")
+    rows, busy_ms, span_ms = profile_device(lambda: trainer.train_step(state, batch))
+    if not rows:
+        log("  torch.profiler recorded no device time for the train step")
+    else:
+        total = sum(r[0] for r in rows)
+        log(f"  one train step under torch.profiler: device busy {busy_ms:.3f} ms of the "
+            f"{span_ms:.3f} ms from its first to its last device activity (idle share "
+            f"{1 - busy_ms / span_ms:.4f}, profiler overhead included); device time by "
+            f"kernel name, top 12 of {len(rows)}:")
+        for ms, count, key in rows[:12]:
+            log(f"    {ms:9.3f} ms  {100 * ms / total:5.1f}%  x{count:<4d} {key[:120]}")
+    pparts, ppeaks, cand, kept = fcos_predict_breakdown(trainer, state, batch)
+    log(f"  prediction step at batch {HEAD_BATCH} (ms, wall clock with a synchronize per "
+        "part): " + ", ".join(f"{k} {v:.3f}" for k, v in pparts.items())
+        + f"; total {sum(pparts.values()):.3f}; {kept} detections; peak memory per part "
+        "(GiB): " + ", ".join(f"{k} {v:.4f}" for k, v in ppeaks.items()) + f" | {smi}")
+    gt, gv = batch["gt_boxes"].cpu().numpy(), batch["gt_valid"].cpu().numpy()
+    cb, cs = clustered_candidates(gt, gv, cand["boxes"].shape[1], seed=46)
+    for name, args in (("the random-weight prediction's candidates",
+                        (cand["boxes"], cand["scores"], cand["valid"])),
+                       ("as many candidates clustered on the scenes' boxes",
+                        (torch.from_numpy(cb).to(dev), torch.from_numpy(cs).to(dev),
+                         torch.ones(cs.shape, dtype=torch.bool, device=dev)))):
+        st = nms_study(*args, cfg.nms_thresh)
+        log(f"  NMS at batch {HEAD_BATCH}, {name}: {st['pairs'] // HEAD_BATCH} pairs a scene; "
+            f"in the batch, extents overlap in {st['overlapping']} (share "
+            f"{st['overlapping'] / st['pairs']:.6f}), {st['suppressing']} suppress, "
+            f"{st['kept']} boxes kept (before the cap of {cfg.post_nms_top_n} a scene); "
+            f"fixed-point rounds per scene {st['rounds']}; ms "
+            f"per batch: suppress matrix {st['matrix']:.3f}, greedy scan on the device "
+            f"{st['device scan']:.3f}, on the host over the copied matrix "
+            f"{st['host scan']:.3f} | {smi}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    fcos_compare_with_plain(dev, mae_sd)
+    return launches, benches, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1358,8 +1882,12 @@ def main() -> int:
         log(f"[13] voxel semantics: swin_s {RES}^3, {NUM_CLASSES} classes, batch "
             f"{HEAD_BATCH}, {HEAD_STEPS} steps from the same MAE checkpoint")
         phase_head("semantics", dev, tmp, smi, mae_ckpt)
+        log(f"[14] FCOS detection: OBB, swin_s {RES}^3, batch {HEAD_BATCH}, {FCOS_STEPS} steps "
+            "from the same MAE checkpoint (launch/train_fcos_pretrained.sh's flags), eval, "
+            "benchmarks (OBB and AABB)")
+        phase_fcos(dev, tmp, smi, mae_ckpt)
 
-    log(f"[14] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log(f"[15] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

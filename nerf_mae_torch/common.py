@@ -23,9 +23,11 @@ from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 log = logging.getLogger("nerf_mae_torch")
 
 
-def add_common_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+def add_common_flags(p: argparse.ArgumentParser,
+                     other_backbones: Sequence[str] = ()) -> argparse.ArgumentParser:
     p.add_argument("--mode", default="train", choices=["train", "eval", "benchmark"])
-    p.add_argument("--backbone_type", default="swin_s", choices=list(SWIN_PRESETS))
+    p.add_argument("--backbone_type", default="swin_s",
+                   choices=list(SWIN_PRESETS) + list(other_backbones))
     p.add_argument("--resolution", default=160, type=int)
     p.add_argument("--batch_size", default=8, type=int)
     p.add_argument("--num_epochs", default=100, type=int)
@@ -134,7 +136,7 @@ def prepare_state(args, trainer, mae_cfg: MAEConfig):
     state = trainer.init(args.seed)
     if args.mae_checkpoint:
         state = trainer.graft_mae(state, load_mae_params(args.mae_checkpoint, mae_cfg))
-        log.info("grafted MAE trunk+decoder from %s", args.mae_checkpoint)
+        log.info("grafted the MAE's weights from %s", args.mae_checkpoint)
     if args.checkpoint:
         restored = restore_checkpoint(args.checkpoint)
         state.model.load_state_dict(restored["params"])
@@ -150,27 +152,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def benchmark_eval(args, trainer, state, batch: Dict[str, torch.Tensor], task: str,
-                   out_resolution: int, reps: int = 20, warmup: int = 3) -> Dict:
-    """Times `reps` synchronized eval steps on `batch` after `warmup`
+def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric: str,
+                    summary: Callable[[Dict], Dict] = lambda out: {},
+                    reps: int = 20, warmup: int = 3) -> Dict:
+    """Times `reps` synchronized calls of step() after `warmup`
     (scripts/common.py benchmark_step) and prints one JSON line: ms and its
-    std per eval step, grids/s, peak device memory, the device."""
-    device = trainer.device
+    std per step, grids/s, peak device memory, the device, and
+    summary(the last call's output). Returns that dict."""
     for _ in range(warmup):
-        trainer.eval_step(state, batch)
+        step()
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
     for _ in range(reps):
         t = time.perf_counter()
-        m = trainer.eval_step(state, batch)
+        m = step()
         _sync(device)
         times.append(time.perf_counter() - t)
     ms = float(np.mean(times) * 1e3)
     out = {
-        "metric": f"eval_ms_{task}_{args.backbone_type}_{args.resolution}"
-                  f"_to_{out_resolution}",
+        "metric": metric,
         "ms": ms,
         "ms_std": float(np.std(times) * 1e3),
         "grids_per_sec": args.batch_size / (ms / 1e3),
@@ -178,17 +180,27 @@ def benchmark_eval(args, trainer, state, batch: Dict[str, torch.Tensor], task: s
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "loss": float(m["loss"]),
+        **summary(m),
     }
     print(json.dumps(out), flush=True)
     return out
 
 
+def benchmark_eval(args, trainer, state, batch: Dict[str, torch.Tensor], task: str,
+                   out_resolution: int) -> Dict:
+    """benchmark_steps of the trainer's eval step on `batch`, with its loss."""
+    return benchmark_steps(
+        args, trainer.device, lambda: trainer.eval_step(state, batch),
+        f"eval_ms_{task}_{args.backbone_type}_{args.resolution}_to_{out_resolution}",
+        summary=lambda m: {"loss": float(m["loss"])})
+
+
 def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.ndarray]]],
         train_ds, run_eval: Callable, best_key: str, log_keys: Sequence[str],
-        task: str, out_resolution: int):
+        task: str, out_resolution: int, benchmark: Optional[Callable] = None):
     """The CLI's --mode: eval (run_eval's metrics, also to --eval_json),
-    benchmark (benchmark_eval's dict) or train (returns {"steps", "history",
+    benchmark (benchmark_eval's dict, or benchmark(args, trainer, state,
+    batch)'s) or train (returns {"steps", "history",
     "checkpoint_dir"}; checkpoints at --ckpt_interval, the best `best_key`
     eval at --eval_interval, and the last step)."""
     device = trainer.device
@@ -200,6 +212,8 @@ def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.nd
         return out
     batches = (to_device(b, device) for b in batch_iter(train_ds, args))
     if args.mode == "benchmark":
+        if benchmark is not None:
+            return benchmark(args, trainer, state, next(batches))
         return benchmark_eval(args, trainer, state, next(batches), task, out_resolution)
 
     history = []

@@ -192,6 +192,41 @@ def head_params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig,
     return _convert(tree_or_flat, _map_head_key, want)
 
 
+def _map_det_key(path: str, swin_body: bool) -> Tuple[str, Optional[Callable]]:
+    """A FCOSDetector leaf: a Swin body's trunk keeps the MAE's names
+    (patch_embed, patch_norm, encoder -> patch_partition, stages); every
+    other leaf is a conv (`kernel` -> `weight`), a GroupNorm (`scale` ->
+    `weight`), a bias, or the head's per-level `scales`, under its module
+    path with "." for "/"."""
+    if swin_body and path.startswith(("body/patch_", "body/encoder/")):
+        name, fn = _map_key(path[len("body/"):])
+        return f"body.{name}", fn
+    m = re.fullmatch(r"((?:body|head)(?:/\w+)*)/(kernel|scale|bias)", path)
+    if m:
+        prefix = m.group(1).replace("/", ".")
+        if m.group(2) == "kernel":
+            return f"{prefix}.weight", _conv
+        return f"{prefix}.{'weight' if m.group(2) == 'scale' else 'bias'}", None
+    if path == "head/scales":
+        return "head.scales", None
+    raise KeyError(path)
+
+
+def det_params_from_jax(tree_or_flat: Mapping, swin, fcos, backbone: str = "swin_s",
+                        out_channels: int = 256) -> Dict[str, torch.Tensor]:
+    """JAX FCOSDetector params (nested flax tree or "/"-flat, as numpy) for
+    (swin, fcos, backbone) -> the port detector's state_dict (CPU float32
+    tensors): the FPN, the towers, GroupNorm scale/bias -> weight/bias, the
+    three output convs and `scales`. Raises on a missing or unknown
+    parameter."""
+    from nerf_mae_torch.models.detector import FCOSDetector
+
+    want = set(FCOSDetector(swin, fcos, backbone, out_channels, device="meta")
+               .state_dict().keys())
+    swin_body = backbone.startswith("swin")
+    return _convert(tree_or_flat, lambda p: _map_det_key(p, swin_body), want)
+
+
 def _check_keys(sd: Mapping, want: set) -> None:
     missing, extra = want - set(sd), set(sd) - want
     if missing or extra:

@@ -304,6 +304,99 @@ def synthetic_scenes(n: int, resolution: int = 160, seed: int = 0,
     return scenes
 
 
+def synthetic_detection_scenes(n: int, resolution: int = 160, seed: int = 0,
+                               min_size: Optional[int] = None, obb: bool = False,
+                               hard: bool = False) -> List[Dict]:
+    """Synthetic scenes with box annotations of their blobs (AABB [N, 6], or
+    OBB [N, 7] with theta = 0): {"rgbsigma", "boxes"} dicts, the JAX
+    package's draws number for number. hard=True is its low-data
+    distribution: more and smaller objects, unlabelled clutter (floor and
+    wall slabs, debris), faint objects and background alpha noise."""
+    rng = np.random.RandomState(seed)
+    lo = min_size or int(resolution * 0.8)
+    scenes = []
+    for _ in range(n):
+        size = rng.randint(lo, resolution + 1, 3)
+        g = np.zeros((*size, 4), np.float32)
+        if hard:
+            fh = rng.randint(2, 5)
+            g[:, :, :fh, :3] = rng.rand(3) * 0.5
+            g[:, :, :fh, 3] = rng.uniform(0.4, 0.9)
+            ww = rng.randint(2, 4)
+            g[:ww, :, :, :3] = rng.rand(3) * 0.5
+            g[:ww, :, :, 3] = rng.uniform(0.4, 0.9)
+            for _ in range(rng.randint(4, 9)):  # debris clutter, unlabelled
+                c = rng.randint(3, size - 3, 3)
+                e = rng.randint(1, 3, 3)
+                s0, s1 = np.maximum(c - e, 0), np.minimum(c + e, size)
+                g[s0[0]:s1[0], s0[1]:s1[1], s0[2]:s1[2], :3] = rng.rand(3)
+                g[s0[0]:s1[0], s0[1]:s1[1], s0[2]:s1[2], 3] = rng.uniform(0.3, 0.8)
+            g[..., 3] += rng.rand(*size) * 0.05
+        boxes = []
+        for _ in range(rng.randint(4, 10) if hard else rng.randint(2, 6)):
+            c = rng.randint(6, size - 6, 3)
+            if hard:
+                e = rng.randint(2, max(min(size) // 8, 5), 3)
+            else:
+                e = rng.randint(3, max(min(size) // 4, 4), 3)
+            s0 = np.maximum(c - e, 0)
+            s1 = np.minimum(c + e, size)
+            g[s0[0]:s1[0], s0[1]:s1[1], s0[2]:s1[2], :3] = rng.rand(3)
+            alpha = rng.uniform(0.3, 1.0) if hard else rng.uniform(0.5, 1.0)
+            g[s0[0]:s1[0], s0[1]:s1[1], s0[2]:s1[2], 3] = alpha
+            if obb:
+                boxes.append([*((s0 + s1) / 2), *(s1 - s0).astype(np.float32), 0.0])
+            else:
+                boxes.append([*s0, *s1])
+        if hard:
+            np.clip(g[..., 3], 0.0, 1.0, out=g[..., 3])
+        scenes.append({"rgbsigma": g, "boxes": np.asarray(boxes, np.float32)})
+    return scenes
+
+
+def pad_boxes(boxes: np.ndarray, max_gt: int) -> Tuple[np.ndarray, np.ndarray]:
+    """[N, 6|7] -> ([max_gt, 6|7], valid [max_gt]) with zero padding."""
+    d = boxes.shape[1] if boxes.size else 6
+    out = np.zeros((max_gt, d), np.float32)
+    valid = np.zeros((max_gt,), bool)
+    n = min(len(boxes), max_gt)
+    if n:
+        out[:n] = boxes[:n]
+        valid[:n] = True
+    return out, valid
+
+
+def detection_batch_iterator(dataset: Sequence, batch_size: int, resolution: int,
+                             max_gt: int = 64, shuffle: bool = True, seed: int = 0,
+                             drop_last: bool = True, loop: bool = True
+                             ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields {"grids": [B, R, R, R, 4] float32, "sizes": [B, 3] int32,
+    "gt_boxes": [B, G, 6|7] float32, "gt_valid": [B, G] bool}, in the JAX
+    iterator's order; scenes are loaded inline."""
+    rng = np.random.RandomState(seed)
+    n = len(dataset)
+    while True:
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        for start in range(0, n, batch_size):
+            sel = order[start: start + batch_size]
+            if len(sel) < batch_size and drop_last:
+                continue
+            items = [dataset[int(j)] for j in sel]
+            box_dim = max((i["boxes"].shape[1] for i in items if i.get("boxes") is not None),
+                          default=6)
+            grids = np.zeros((len(sel), resolution, resolution, resolution, 4), np.float32)
+            sizes = np.zeros((len(sel), 3), np.int32)
+            gt = np.zeros((len(sel), max_gt, box_dim), np.float32)
+            gv = np.zeros((len(sel), max_gt), bool)
+            for i, item in enumerate(items):
+                grids[i], sizes[i] = pad_to_cube(item["rgbsigma"], resolution)
+                if item.get("boxes") is not None:
+                    gt[i], gv[i] = pad_boxes(item["boxes"], max_gt)
+            yield {"grids": grids, "sizes": sizes, "gt_boxes": gt, "gt_valid": gv}
+        if not loop:
+            return
+
+
 def pad_to_cube(g: np.ndarray, resolution: int) -> Tuple[np.ndarray, np.ndarray]:
     """Crop-to-fit + zero-pad a (W, L, H, C) grid to resolution^3; returns
     (grid, size [3] int32)."""

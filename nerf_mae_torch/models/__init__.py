@@ -1,1 +1,2 @@
-"""Models of the port (Swin trunk, UNETR decoder, SwinMAE3D)."""
+"""Models of the port (Swin trunk, UNETR decoder, SwinMAE3D, the dense heads,
+and the FCOS detector with its FPN and backbones)."""

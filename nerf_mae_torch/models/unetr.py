@@ -34,11 +34,21 @@ class Conv3d(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, k, device=device))
         self.bias = nn.Parameter(torch.empty(out_ch, device=device))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, stride: int = 1) -> torch.Tensor:
         """'SAME' cross-correlation at the compute dtype, NDHWC in and out;
-        the bias is added in the compute dtype, as flax nn.Conv does."""
+        the bias is added in the compute dtype, as flax nn.Conv does. A
+        stride pads as flax's SAME does: ceil(n / stride) outputs, the odd
+        pad voxel after."""
         k = self.weight.shape[-1]
-        y = F.conv3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype), padding=k // 2)
+        if stride == 1:
+            y = F.conv3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype), padding=k // 2)
+            return _to_ndhwc(y) + self.bias.to(dtype)
+        pads = []
+        for n in reversed(x.shape[1:4]):  # F.pad lists the last dim first
+            total = max(0, (-(-n // stride) - 1) * stride + k - n)
+            pads += [total // 2, total - total // 2]
+        y = F.conv3d(F.pad(_to_ncdhw(x.to(dtype)), pads), self.weight.to(dtype),
+                     stride=stride)
         return _to_ndhwc(y) + self.bias.to(dtype)
 
 
@@ -105,6 +115,22 @@ def instance_norm_3d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     affine, population variance in f32 (torch nn.InstanceNorm3d defaults);
     the result in x's dtype."""
     return _InstanceNorm3d.apply(x, eps)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-6) -> torch.Tensor:
+    """flax nn.GroupNorm on NDHWC x: statistics over the spatial dims and
+    each group's channels in float32 with the fast variance max(0, E[x^2] -
+    mu^2), epsilon 1e-6 (torch's default is 1e-5); y = (x - mu) *
+    (rsqrt(var + eps) * scale) + bias. Returns float32 whatever x's dtype,
+    as flax does for float32 parameters."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps) * scale.float().reshape(1, 1, num_groups, -1)
+    y = (xf - mean) * mul + bias.float().reshape(1, 1, num_groups, -1)
+    return y.reshape(x.shape)
 
 
 def _lrelu(x):

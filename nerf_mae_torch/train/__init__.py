@@ -1,1 +1,2 @@
-"""MAE pretraining: optimizer and schedule, trainer, checkpoints."""
+"""Training: optimizer and schedule, the MAE, dense-head and detection
+trainers, checkpoints."""

@@ -74,8 +74,11 @@ class Trainer:
     def _build_model(self) -> torch.nn.Module:
         raise NotImplementedError
 
+    def _init_model(self, seed: int) -> torch.nn.Module:
+        return init_weights(self._build_model(), seed)
+
     def init(self, seed: int) -> TrainState:
-        model = init_weights(self._build_model(), seed)
+        model = self._init_model(seed)
         n = sum(p.numel() for p in model.parameters())
         logger.info("initialized %s with %d params", type(model).__name__, n)
         return TrainState(0, model.train(),

@@ -1,10 +1,14 @@
 """CPU tests of chip_smoke.py's host-side helpers: the ptxas summary of the
-kernel build and the work / bound arithmetic behind the kernels line."""
+kernel build, the work / bound arithmetic behind the kernels line, and
+phase 14's FCOS tower work count, NMS flip counter, clustered NMS
+candidates, host scan and parameter groups."""
 
 import chip_smoke
+import numpy as np
 import torch
 
 from nerf_mae_torch import kernels
+from nerf_mae_torch.ops import nms
 
 PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN4swin9sum_partsEPKfixPf' for 'sm_90a'
 ptxas info    : Function properties for _ZN4swin9sum_partsEPKfixPf
@@ -62,3 +66,86 @@ def test_work_and_bound_of_the_swin_s_stage0_block():
     bwd_ms, bwd_by = chip_smoke.bound(bwd, bwd_bytes, torch.bfloat16)
     assert fwd_by == bwd_by == "operations"
     assert abs(fwd_ms - 0.1272) < 5e-4 and abs(bwd_ms - 0.3817) < 5e-4
+
+
+def test_fcos_tower_work_count():
+    """The FCOS towers at swin_s 160^3, batch 8: 8 convs of 256 -> 256 over
+    40^3 are ~1.8 TFLOP each; all levels with the output convs ~16.6 TFLOP a
+    forward."""
+    level0_conv = 2 * 27 * 256 * 256 * 40**3 * 8
+    assert abs(level0_conv / 1e12 - 1.812) < 1e-3
+    flops = chip_smoke.fcos_tower_flops(160, 8)
+    assert flops == 73125 * 8 * 2 * 27 * 256 * (8 * 256 + 10)
+    assert abs(flops / 1e12 - 16.64) < 0.01
+
+
+def test_nms_flip_counter():
+    """Suppress entries that differ between two devices are counted with the
+    largest distance of their IoU from the threshold and the first
+    candidate they can decide."""
+    a = torch.zeros(4, 4, dtype=torch.bool)
+    b = a.clone()
+    assert chip_smoke.nms_flips(a, b, lambda j, i: 0.0, 0.3) == (0, 0.0, 4)
+    b[0, 2] = True
+    b[1, 3] = True
+    ious = {(0, 2): 0.3000004, (1, 3): 0.2999990}
+    n, worst, first = chip_smoke.nms_flips(a, b, lambda j, i: ious[int(j), int(i)], 0.3)
+    assert n == 2 and abs(worst - 1e-6) < 1e-9 and worst < chip_smoke.NMS_FLIP_TOL
+    assert first == 2
+    ious[1, 3] = 0.25
+    assert chip_smoke.nms_flips(a, b, lambda j, i: ious[int(j), int(i)], 0.3)[1] > 1e-2
+    b[2, 2] = b[3, 1] = True  # the diagonal and below are never read
+    assert chip_smoke.nms_flips(a, b, lambda j, i: ious[int(j), int(i)], 0.3)[0] == 2
+
+
+def test_clustered_candidates_make_suppression_decide():
+    """Candidates jittered around a scene's boxes, graded by their jitter:
+    at the FCOS threshold most suppress one another, NMS keeps a small
+    share, and both scans (the fixed point on the tensors, the host's over
+    the copied matrix) keep the same boxes, in a few rounds."""
+    gt = np.zeros((2, 5, 7), np.float32)
+    gt[:, :3, :3] = [[10, 10, 10], [30, 12, 20], [18, 30, 8]]
+    gt[:, :3, 3:6] = [[6, 8, 5], [10, 4, 6], [5, 5, 9]]
+    valid = np.zeros((2, 5), bool)
+    valid[:, :3] = True
+    valid[1, 2] = False
+    boxes, scores = chip_smoke.clustered_candidates(gt, valid, 300, seed=0)
+    assert boxes.shape == (2, 300, 7) and scores.shape == (2, 300)
+    assert np.all(boxes[..., 3:6] > 0) and np.all((scores > 0) & (scores <= 1))
+    # scene 1 draws only around its two valid boxes
+    near = np.abs(boxes[1, :, None, :2] - gt[1, None, :2, :2]).max(-1).min(-1)
+    assert near.max() < 3 * gt[1, :2, 3:5].max()
+    order = nms.sort_desc(torch.from_numpy(scores[0]))
+    sup = nms.suppress_matrix(torch.from_numpy(boxes[0])[order], 0.3)
+    ok = torch.ones(300, dtype=torch.bool)
+    ok[::9] = False
+    keep = chip_smoke.host_scan(sup, ok)
+    assert sup.sum() > 2000 and 0 < keep.sum() < 300 // 4 and not keep[~ok.numpy()].any()
+    np.testing.assert_array_equal(nms.greedy_keep(sup, ok).numpy(), keep)
+    assert 2 <= chip_smoke.scan_rounds(sup, ok) < 20
+
+
+def test_host_scan_and_rounds_on_a_chain():
+    """A chain where each box suppresses the next: kept alternately, and the
+    fixed point takes one round per link plus one."""
+    n = 9
+    sup = torch.zeros(n, n, dtype=torch.bool)
+    sup[torch.arange(n - 1), torch.arange(1, n)] = True
+    ok = torch.ones(n, dtype=torch.bool)
+    np.testing.assert_array_equal(chip_smoke.host_scan(sup, ok), np.arange(n) % 2 == 0)
+    assert chip_smoke.scan_rounds(sup, ok) == n
+
+
+def test_detector_parameter_groups():
+    group = chip_smoke.det_param_group
+    assert group("body.patch_partition.0.weight") == "body.patch_partition"
+    assert group("body.stages.2.0.norm.weight") == "body.stages.2.merge"
+    assert group("body.stages.2.5.attn.qkv.weight") == "body.stages.2.blocks"
+    assert group("body.fpn.lateral3.bias") == "body.fpn"
+    assert group("head.cls_tower2.weight") == "head.cls_tower"
+    assert group("head.box_gn0.bias") == "head.box_gn"
+    assert group("head.scales") == "head.scales"
+    cfg = chip_smoke.fcos_config()
+    assert (cfg.use_obb, cfg.iou_loss_type, cfg.center_sampling_radius) == (True, "iou", 1.5)
+    assert (cfg.pre_nms_top_n, cfg.post_nms_top_n, cfg.nms_thresh, cfg.max_gt) == (
+        2500, 2500, 0.3, 64)
