@@ -76,7 +76,27 @@ Phases (any failure raises and the exit code is not 0):
      composition; the post-processing on the card against the CPU, with
      an NMS case where suppression decides what is kept (suppress-matrix
      flips only within 1e-5 of the threshold, kept sets equal up to them);
- 15. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 15. the anchor RPN and the RCNN (AABB, swin_s 160^3, batch 8, the flags of
+     launch/train_rpn.sh): `nerf_mae_torch.run_rpn.main` trains 40 steps from
+     the same MAE checkpoint (finite losses, positives in every step, 22
+     fused-block forward and 22 backward launches per step), `--mode eval`
+     reads its checkpoint back (recall, AR, AP), `--mode benchmark` times
+     the prediction step, AABB and OBB; the graft is verified; the parts of
+     a train step (body, head, assign + sample + loss, backward, clip +
+     AdamW) and of a prediction step (body, head, per-level top-k + decode,
+     per-level NMS, final top-k) with their peak memory; one train step
+     and one prediction step under torch.profiler; batch-1 head outputs and
+     a float32 step's
+     gradients (the sampler's draws passed in) against the plain
+     composition; the candidates, each level's NMS and the proposals on the
+     card against the CPU; then `nerf_mae_torch.run_rpn_detect.main` trains
+     the RCNN 4 steps over that RPN (its foreground proposals counted first;
+     finite losses, positives in some step,
+     22 fused-block forward launches and no backward per step), evals at
+     300 (AP) and times the parts of its step (body + proposals, sampling +
+     RoI align, head forward, loss + backward, clip + AdamW) with their peak
+     memory;
+ 16. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -98,8 +118,8 @@ import time
 import numpy as np
 import torch
 
-from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain,
-                            run_voxel_semantics, run_voxel_sr)
+from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain, run_rpn,
+                            run_rpn_detect, run_voxel_semantics, run_voxel_sr)
 from nerf_mae_torch.common import load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
 from nerf_mae_torch.data import detection_batch_iterator, synthetic_detection_scenes
@@ -113,6 +133,16 @@ from nerf_mae_torch.models.fcos import (
     nms_boxes,
 )
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
+from nerf_mae_torch.models.rcnn import rcnn_loss
+from nerf_mae_torch.models.rpn import (
+    NeRFRPN,
+    RPNConfig,
+    rpn_candidates,
+    rpn_filter_proposals,
+    rpn_level_nms,
+    rpn_loss,
+    rpn_select,
+)
 from nerf_mae_torch.ops.fused_attention import (
     fused_window_attention,
     fused_window_attention_bwd,
@@ -126,12 +156,15 @@ from nerf_mae_torch.ops.fused_block import (
     fused_swin_block_plain,
 )
 from nerf_mae_torch.ops import nms
+from nerf_mae_torch.ops.anchors import anchor_padding_mask, anchors_on
+from nerf_mae_torch.ops.boxes import box_iou_aabb
 from nerf_mae_torch.ops.masking import block_mask_3d
 from nerf_mae_torch.ops.rotated_iou import iou_3d
 from nerf_mae_torch.train import optim
 from nerf_mae_torch.train.checkpoint import extract_trunk
 from nerf_mae_torch.train.det_trainer import DetectionTrainer
 from nerf_mae_torch.train.head_trainer import VoxelSemanticsTrainer, VoxelSRTrainer
+from nerf_mae_torch.train.rpn_trainer import RCNNTrainer, RPNTrainer
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, float32 FMA units,
 # HBM3 bandwidth. Bounds are stated against them, with the card's power
@@ -1057,6 +1090,37 @@ def head_batch(kind, batch, dev, seed):
         0, NUM_CLASSES, (batch, RES, RES, RES), generator=gen, device=dev)}
 
 
+def timed_parts(names):
+    """A recorder of the parts of a step on the device timeline. Returns
+    (start, mark, finish, parts, peaks): start() opens a rep, mark(i)
+    records event i and, past the first, the peak allocated memory since
+    the previous mark (GiB, into peaks), finish(rep) waits for the last
+    event and, from the second rep on, appends each part's time (ms) to
+    parts."""
+    parts = {k: [] for k in names}
+    peaks = {}
+    ev = []
+
+    def start():
+        ev[:] = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def mark(i):
+        ev[i].record()
+        if i:
+            peaks[names[i - 1]] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+
+    def finish(rep):
+        ev[-1].synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+
+    return start, mark, finish, parts, peaks
+
+
 def head_step_breakdown(kind, trainer, state, batch):
     """CUDA-event times (ms) of the parts of one train step on the device
     timeline, medians of 3 steps after a warm-up: encoder1, the trunk with
@@ -1065,22 +1129,12 @@ def head_step_breakdown(kind, trainer, state, batch):
     within each part (GiB, last step)."""
     model, cfg = state.model, trainer.mae_cfg
     model.train()
-    names = ("encoder1", "base", "decoder1", "head", "loss", "backward", "clip+adamw")
-    parts = {k: [] for k in names}
-    peaks = {}
+    start, mark, finish, parts, peaks = timed_parts(
+        ("encoder1", "base", "decoder1", "head", "loss", "backward", "clip+adamw"))
     gen = torch.Generator(device=trainer.device)
     gen.manual_seed(21)
     for rep in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
-        def mark(i):
-            ev[i].record()
-            if i:
-                peaks[names[i - 1]] = torch.cuda.max_memory_allocated() / 2**30
-                torch.cuda.reset_peak_memory_stats()
-
+        start()
         mark(0)
         enc1 = heads.maybe_remat(cfg, model.encoder1, batch["grids"].to(cfg.dtype))
         mark(1)
@@ -1101,10 +1155,7 @@ def head_step_breakdown(kind, trainer, state, batch):
         optim.clip_with_nonfinite_guard(grads, 0.1)
         state.optimizer.step()
         mark(7)
-        ev[-1].synchronize()
-        if rep:
-            for i, k in enumerate(names):
-                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+        finish(rep)
     return {k: statistics.median(v) for k, v in parts.items()}, peaks
 
 
@@ -1432,8 +1483,15 @@ def nms_study(boxes, scores, valid, threshold):
     return {**out, **t}
 
 
+def pair_iou(boxes, j, i):
+    """The IoU of boxes j and i of [N, 6] AABBs or [N, 7] OBBs."""
+    if boxes.shape[-1] == 6:
+        return box_iou_aabb(boxes[j: j + 1], boxes[i: i + 1])[0, 0]
+    return iou_3d(boxes[j], boxes[i])
+
+
 def nms_against_cpu(boxes, scores, valid, threshold, cap):
-    """One scene's NMS (OBB candidates on the card) against the same
+    """One scene's NMS (AABB or OBB candidates on the card) against the same
     function on the CPU from the same candidates: the suppress matrices may
     differ only where |IoU - threshold| < NMS_FLIP_TOL; each device's keep
     mask (nms.nms_mask) must be host_scan of its own matrix, capped at
@@ -1450,7 +1508,7 @@ def nms_against_cpu(boxes, scores, valid, threshold, cap):
     cpu_s = time.perf_counter() - t0
     sup_card = nms.suppress_matrix(bx, threshold)
     flips, worst, first = nms_flips(sup_card.cpu().numpy(), sup_cpu.numpy(),
-                                    lambda j, i: iou_3d(bx_cpu[j], bx_cpu[i]), threshold)
+                                    lambda j, i: pair_iou(bx_cpu, j, i), threshold)
     if worst >= NMS_FLIP_TOL:
         raise AssertionError(f"suppress matrices differ away from the threshold ({worst:.2e})")
     keep_card = nms.nms_mask(boxes, scores, threshold, valid, cap)[order].cpu().numpy()
@@ -1490,22 +1548,12 @@ def fcos_step_breakdown(trainer, state, batch):
     and the peak allocated memory within each part (GiB, last step)."""
     model, cfg = state.model, trainer.fcos
     model.train()
-    names = ("body", "head", "targets+loss", "backward", "clip+adamw")
-    parts = {k: [] for k in names}
-    peaks = {}
+    start, mark, finish, parts, peaks = timed_parts(
+        ("body", "head", "targets+loss", "backward", "clip+adamw"))
     gen = torch.Generator(device=trainer.device)
     gen.manual_seed(41)
     for rep in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
-        def mark(i):
-            ev[i].record()
-            if i:
-                peaks[names[i - 1]] = torch.cuda.max_memory_allocated() / 2**30
-                torch.cuda.reset_peak_memory_stats()
-
+        start()
         mark(0)
         feats = model.body(batch["grids"], False, gen)
         mark(1)
@@ -1522,10 +1570,7 @@ def fcos_step_breakdown(trainer, state, batch):
         optim.clip_with_nonfinite_guard(grads, 0.1)
         state.optimizer.step()
         mark(5)
-        ev[-1].synchronize()
-        if rep:
-            for i, k in enumerate(names):
-                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+        finish(rep)
     return {k: statistics.median(v) for k, v in parts.items()}, peaks
 
 
@@ -1676,6 +1721,23 @@ def fcos_compare_with_plain(dev, mae_sd):
     torch.cuda.empty_cache()
 
 
+def check_graft(trainer, mae_sd, what):
+    """trainer.graft_mae on a fresh state: every trunk tensor of the body
+    equals the MAE's, everything else is untouched. Returns the state."""
+    state = trainer.init(0)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    trunk = {f"body.{k}": v for k, v in extract_trunk(mae_sd).items()}
+    state = trainer.graft_mae(state, mae_sd)
+    sd = state.model.state_dict()
+    if not trunk or not all(torch.equal(sd[k], v.to(sd[k].device)) for k, v in trunk.items()) \
+            or not all(torch.equal(v, before[k]) for k, v in sd.items() if k not in trunk):
+        raise AssertionError(f"{what}: the grafted body differs from the MAE checkpoint's "
+                             "trunk, or the graft touched the FPN or the head")
+    log(f"  graft: all {len(trunk)} trunk tensors equal the MAE checkpoint's; the other "
+        f"{len(sd) - len(trunk)} (FPN, head) are untouched")
+    return state
+
+
 def phase_fcos(dev, tmp, smi, mae_ckpt):
     """FCOS detection through run_fcos (OBB, swin_s 160^3, batch 8, the
     flags of launch/train_fcos_pretrained.sh): train from the MAE
@@ -1738,19 +1800,8 @@ def phase_fcos(dev, tmp, smi, mae_ckpt):
 
     cfg = fcos_config()
     trainer = DetectionTrainer(SWIN_PRESETS["swin_s"], cfg, TrainConfig(), 100, dev)
-    state = trainer.init(0)
-    before = {k: v.clone() for k, v in state.model.state_dict().items()}
     mae_sd = load_mae_params(mae_ckpt, swin_s_cfg())
-    trunk = {f"body.{k}": v for k, v in extract_trunk(mae_sd).items()}
-    state = trainer.graft_mae_trunk(state, mae_sd)
-    sd = state.model.state_dict()
-    if not trunk or not all(torch.equal(sd[k], v.to(dev)) for k, v in trunk.items()) or not all(
-            torch.equal(v, before[k]) for k, v in sd.items() if k not in trunk):
-        raise AssertionError("FCOS: the grafted body differs from the MAE checkpoint's trunk, "
-                             "or the graft touched the FPN or the head")
-    log(f"  graft: all {len(trunk)} trunk tensors equal the MAE checkpoint's; the other "
-        f"{len(sd) - len(trunk)} (FPN, head) are untouched")
-    del before, sd
+    state = check_graft(trainer, mae_sd, "FCOS")
     batch = det_batch(HEAD_BATCH, dev, seed=45)
     parts, peaks = fcos_step_breakdown(trainer, state, batch)
     step_ms = sum(parts.values())
@@ -1797,6 +1848,435 @@ def phase_fcos(dev, tmp, smi, mae_ckpt):
     torch.cuda.empty_cache()
     fcos_compare_with_plain(dev, mae_sd)
     return launches, benches, parts
+
+
+# The anchor RPN and the RCNN (phase 15): launch/train_rpn.sh's flags with
+# run_rpn's defaults (AABB, head depth 2, smooth-L1, 2500 proposals, NMS
+# 0.3, 64 GT), then run_rpn_detect's defaults (256 proposals a scene, 128
+# RoIs, 5^3 RoI features) over that RPN. The RPN trains 40 steps: after 4,
+# none of its 256 proposals a scene reached the RCNN's foreground IoU of 0.5
+# on an H100, so the RCNN saw no positive; after 40, 2-6 a scene did.
+RPN_STEPS = 40
+RPN_FLAGS = ("--lr", "3e-4", "--weight_decay", "1e-3")
+RCNN_STEPS = 4
+
+
+def rpn_config(**kw) -> RPNConfig:
+    """The RPNConfig run_rpn builds from RPN_FLAGS at RES."""
+    return RPNConfig(**{**dict(resolution=RES, conv_depth=2), **kw})
+
+
+def rpn_head_flops(resolution, batch, width=256, depth=2, anchors=13, delta_dim=6,
+                   strides=(4, 8, 16, 32)):
+    """FLOPs of one forward of the RPN head: `depth` 3^3 convs of width ->
+    width and the 1^3 objectness and delta convs over every level's grid."""
+    voxels = sum(math.ceil(resolution / s) ** 3 for s in strides) * batch
+    return voxels * 2 * width * (depth * 27 * width + anchors * (1 + delta_dim))
+
+
+def rcnn_head_flops(rois, size=5, width=256, depth=2, outputs=6 + 2):
+    """FLOPs of one forward of the RCNN head over `rois` pooled RoIs:
+    `depth` 3^3 convs of width -> width over size^3 and the dense layers."""
+    return rois * size ** 3 * 2 * width * (depth * 27 * width + outputs)
+
+
+def rpn_step_breakdown(trainer, state, batch):
+    """CUDA-event times (ms) of the parts of one RPN train step on the
+    device timeline, medians of 3 steps after a warm-up: body (trunk +
+    FPN), head, assign + sample + loss, backward, clip + AdamW; and the
+    peak allocated memory within each part (GiB, last step)."""
+    model, cfg = state.model, trainer.rpn
+    model.train()
+    start, mark, finish, parts, peaks = timed_parts(
+        ("body", "head", "assign+sample+loss", "backward", "clip+adamw"))
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(51)
+    for rep in range(4):
+        start()
+        mark(0)
+        feats = model.body(batch["grids"], False, gen)
+        mark(1)
+        obj, deltas = model.head_outputs(feats)
+        mark(2)
+        anchors, valid = model.anchors(batch["sizes"])
+        obj_loss, reg_loss, _ = rpn_loss(cfg, obj, deltas, anchors, valid, batch["gt_boxes"],
+                                         batch["gt_valid"], generator=gen)
+        loss = obj_loss + cfg.reg_loss_weight * reg_loss
+        mark(3)
+        del feats, obj, deltas
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark(4)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in model.parameters()]
+        optim.clip_with_nonfinite_guard(grads, 0.1)
+        state.optimizer.step()
+        mark(5)
+        finish(rep)
+    return {k: statistics.median(v) for k, v in parts.items()}, peaks
+
+
+@torch.no_grad()
+def rpn_predict_breakdown(trainer, state, batch):
+    """Wall-clock times (ms, each part closed by a synchronize; medians of 2
+    after a warm-up) of one RPN prediction step: body, head, the per-level
+    top-k and decode (rpn_candidates), the NMS of every level and scene
+    (rpn_level_nms), the final top-k (rpn_select); the peak memory per part
+    (GiB) and the proposals kept."""
+    model, cfg = state.model, trainer.rpn
+    model.eval()
+    names = ("body", "head", "top-k+decode", "per-level nms", "final top-k")
+    parts = {k: [] for k in names}
+    peaks = {}
+    for rep in range(3):
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            if rep:
+                parts[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = max(peaks.get(name, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            return out
+
+        feats = timed("body", lambda: model.body(batch["grids"]))
+        outs = timed("head", lambda: model.head_outputs(feats))
+        anchors, valid = model.anchors(batch["sizes"])
+        cands = timed("top-k+decode",
+                      lambda: rpn_candidates(cfg, *outs, anchors, valid, batch["sizes"]))
+        keeps = timed("per-level nms", lambda: rpn_level_nms(cfg, cands))
+        det = timed("final top-k", lambda: rpn_select(cfg, cands, keeps))
+    return ({k: statistics.median(v) for k, v in parts.items()}, peaks,
+            int(det["valid"].sum()))
+
+
+def rpn_compare_with_plain(dev, mae_sd):
+    """Batch 1 (swin_s, 160^3, AABB, the MAE trunk grafted): the RPN's bf16
+    head outputs (objectness, deltas) through the kernels against the plain
+    composition (rel L2 <= 5e-2, 22 fused-block launches); one float32
+    train step's gradients by group, kernels against plain (<= 1e-2, loss
+    1e-4, 22 + 22 launches), the sampler's draws passed in; and the
+    post-processing of the kernel run's head outputs on the card against
+    the same function on the CPU: the candidates (scores to rtol 1e-5),
+    each level's NMS (nms_against_cpu), then the proposals (equal, scores
+    to rtol 1e-5, where no suppress entry flipped)."""
+    swin, cfg = SWIN_PRESETS["swin_s"], rpn_config()
+    batch = det_batch(1, dev, seed=53, obb=False)
+    anchors, centers, _ = anchors_on(dev, *cfg.anchor_key())
+    valid = anchor_padding_mask(centers, batch["sizes"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(54)
+    draws = torch.rand((1, anchors.shape[0]), generator=gen, device=dev)
+    state, outs = None, {}
+    for dtype in ("bfloat16", "float32"):
+        for impl in ("auto", "plain"):
+            model = NeRFRPN(dataclasses.replace(swin, attention_impl=impl), cfg, "swin_s",
+                            dtype=getattr(torch, dtype), device=dev)
+            if state is None:
+                model.init_weights(1)
+                state = model.state_dict()
+                state.update({f"body.{k}": v.to(dev) for k, v in extract_trunk(mae_sd).items()})
+            model.load_state_dict(state)
+            reset_launches()
+            if dtype == "bfloat16":
+                with torch.no_grad():
+                    outs[impl] = model.eval().head_outputs(model.body(batch["grids"]))
+                torch.cuda.synchronize()
+                launches = read_launches()
+                if impl == "auto" and launches["block"] != 22:
+                    raise AssertionError(f"RPN batch-1 forward launches {launches}")
+                continue
+            dp = torch.Generator(device=dev)
+            dp.manual_seed(7)
+            model.train()
+            loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"],
+                              batch["gt_valid"], deterministic=False, training=True,
+                              droppath_generator=dp, sample_draws=draws)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            if impl == "auto" and (launches["block"], launches["block_bwd"]) != (22, 22):
+                raise AssertionError(f"RPN float32 step launches {launches}, expected 22 + 22")
+            outs["f32", impl] = (loss.item(), int(aux["num_pos"]), {
+                n: p.grad.float() for n, p in model.named_parameters()
+                if p.grad is not None and torch.isfinite(p.grad).all()})
+            if len(outs["f32", impl][2]) != len(list(model.parameters())):
+                raise AssertionError(f"RPN {impl}: a parameter got no finite gradient")
+            del model, loss
+    rels = []
+    for name, g, w in zip(("objectness", "deltas"), outs["auto"], outs["plain"]):
+        _, rel, _ = errors(g, w)
+        if not torch.isfinite(g).all() or rel > 5e-2:
+            raise AssertionError(f"RPN {name}: rel L2 {rel:.3e} against plain")
+        rels.append(f"{name} {rel:.2e}")
+    log("  RPN batch-1 bf16 head outputs, kernels vs plain composition (rel L2, tol 5e-2): "
+        + ", ".join(rels))
+    (loss_k, pos_k, grads_k), (loss_p, pos_p, grads_p) = outs["f32", "auto"], outs["f32", "plain"]
+    num, den = {}, {}
+    for name, w in grads_p.items():
+        grp = det_param_group(name)
+        num[grp] = num.get(grp, 0.0) + (grads_k[name] - w).norm().item() ** 2
+        den[grp] = den.get(grp, 0.0) + w.norm().item() ** 2
+    grel = {g: math.sqrt(num[g] / max(den[g], 1e-30)) for g in num}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  RPN batch-1 float32 train step, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rel {loss_rel:.2e}, tol {F32_LOSS_TOL:.0e}), positives {pos_k} and {pos_p}; "
+        f"gradients by group (tol {F32_GRAD_TOL:.0e}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in grel.items()))
+    if loss_rel > F32_LOSS_TOL or max(grel.values()) > F32_GRAD_TOL or pos_k != pos_p:
+        raise AssertionError("RPN float32 kernel gradients disagree with plain")
+    del outs["f32", "auto"], outs["f32", "plain"], grads_k, grads_p
+
+    # the post-processing on the card against the same function on the CPU
+    obj, deltas = outs["auto"]
+    args_cpu = (obj.cpu(), deltas.cpu(), anchors.cpu(), valid.cpu(), batch["sizes"].cpu())
+    cands = rpn_candidates(cfg, obj, deltas, anchors, valid, batch["sizes"])
+    cands_cpu = rpn_candidates(cfg, *args_cpu)
+    for lvl, (c, cc) in enumerate(zip(cands, cands_cpu)):
+        if not (torch.equal(c["valid"].cpu(), cc["valid"])
+                and torch.allclose(c["scores"].cpu(), cc["scores"], rtol=1e-5, atol=0)
+                and torch.allclose(c["boxes"].cpu(), cc["boxes"], rtol=1e-5, atol=1e-4)):
+            raise AssertionError(f"RPN level {lvl} candidates differ between the card and the CPU")
+    total_flips = 0
+    for lvl, c in enumerate(cands):
+        bx, sc, vd = c["boxes"][0], c["scores"][0], c["valid"][0]
+        flips, worst, supp, n_card, n_cpu, diff, cpu_s = nms_against_cpu(
+            bx, sc, vd, cfg.nms_thresh, bx.shape[0])
+        total_flips += flips
+        log(f"  RPN level {lvl} NMS, card vs CPU: {int(vd.sum())} candidates, {supp} "
+            f"suppressing pairs; suppress entries that differ {flips} (largest |IoU - "
+            f"{cfg.nms_thresh}| {worst:.2e}, tol {NMS_FLIP_TOL:.0e}); kept {n_card} on the card, "
+            f"{n_cpu} on the CPU, {diff} kept by one only")
+    det = rpn_filter_proposals(cfg, obj, deltas, anchors, valid, batch["sizes"])
+    det_cpu = rpn_filter_proposals(cfg, *args_cpu)
+    same = (torch.equal(det["valid"].cpu(), det_cpu["valid"])
+            and torch.equal(det["levels"].cpu(), det_cpu["levels"])
+            and torch.allclose(det["scores"].cpu(), det_cpu["scores"], rtol=1e-5, atol=0)
+            and torch.allclose(det["boxes"].cpu(), det_cpu["boxes"], rtol=1e-5, atol=1e-4))
+    log(f"  RPN proposals, card vs CPU: {int(det['valid'].sum())} on the card, "
+        f"{int(det_cpu['valid'].sum())} on the CPU, "
+        + ("equal" if same else "different (traced to the flips above)"))
+    if total_flips == 0 and not same:
+        raise AssertionError("RPN proposals differ between the card and the CPU")
+    del outs, state
+    torch.cuda.empty_cache()
+
+
+def phase_rpn(dev, tmp, smi, mae_ckpt):
+    """The anchor RPN through run_rpn (AABB, swin_s 160^3, batch 8,
+    launch/train_rpn.sh's flags): train from the MAE checkpoint, eval from
+    the RPN's checkpoint, benchmark prediction (AABB, and OBB with random
+    weights); the graft check, the parts of a train step and of a
+    prediction step with their peak memory, one step under torch.profiler,
+    and the comparisons with the plain composition and the CPU. Returns
+    the RPN's checkpoint dir."""
+    common = ["--dataset", "synthetic", "--backbone_type", "swin_s", "--resolution", str(RES),
+              "--batch_size", str(HEAD_BATCH), "--device", "cuda", "--n_synthetic",
+              str(HEAD_BATCH), "--seed", "0"]
+    ckpt = os.path.join(tmp, "rpn_ckpt")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_rpn.main(["--mode", "train", *common, *RPN_FLAGS, "--steps", str(RPN_STEPS),
+                        "--mae_checkpoint", mae_ckpt, "--checkpoint_dir", ckpt,
+                        "--log_interval", "1", "--eval_interval", "1000000",
+                        "--ckpt_interval", "1000000"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    history = out["history"]
+    log(f"  train: {RPN_STEPS} steps in {train_s:.1f} s (data included), losses "
+        f"{[round(h['loss'], 5) for h in history]} (objectness "
+        f"{[round(h['loss_objectness'], 4) for h in history]}, reg "
+        f"{[round(h['loss_reg'], 4) for h in history]}), num_pos "
+        f"{[int(h['num_pos']) for h in history]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in history]}, grids/s with the host's batch "
+        f"{[round(h['grids_per_sec'], 3) for h in history]}, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    want = 22 * RPN_STEPS
+    if (launches["block"], launches["block_bwd"]) != (want, want):
+        raise AssertionError(f"RPN train launches {launches}, expected {want} fused-block "
+                             "forward and backward")
+    if len(history) != RPN_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) and h["num_pos"] > 0
+            for h in history):
+        raise AssertionError(f"RPN train history not finite or without positives: {history}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    agg = run_rpn.main(["--mode", "eval", *common, *RPN_FLAGS, "--checkpoint", ckpt])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  eval from the checkpoint ({eval_ms:.1f} ms for the run_rpn call, model set-up and "
+        f"data included): AP25 {agg.get('ap25')}, AP50 {agg.get('ap50')}, AP75 "
+        f"{agg.get('ap75')}; " + ", ".join(f"{k} {v:.4f}" for k, v in agg.items()
+                                            if k.startswith(("recall", "ar_"))))
+    if not agg or not all(math.isfinite(v) and 0 <= v <= 1 for v in agg.values()):
+        raise AssertionError(f"RPN eval from the checkpoint failed: {agg}")
+    for kind, flags in (("aabb", RPN_FLAGS), ("obb", (*RPN_FLAGS, "--rotated_bbox"))):
+        torch.cuda.empty_cache()
+        bench = run_rpn.main(["--mode", "benchmark", *common, *flags])
+        log(f"  benchmark {kind}: predict step {bench['ms']:.3f} ms (std {bench['ms_std']:.3f}), "
+            f"{bench['grids_per_sec']:.4f} grids/s, peak memory {bench['peak_mem_gib']:.3f} GiB, "
+            f"{bench['proposals_per_scene']:.1f} proposals per scene | {smi}")
+    torch.cuda.empty_cache()
+
+    trainer = RPNTrainer(SWIN_PRESETS["swin_s"], rpn_config(), TrainConfig(), 100, dev)
+    mae_sd = load_mae_params(mae_ckpt, swin_s_cfg())
+    state = check_graft(trainer, mae_sd, "RPN")
+    batch = det_batch(HEAD_BATCH, dev, seed=55, obb=False)
+    parts, peaks = rpn_step_breakdown(trainer, state, batch)
+    step_ms = sum(parts.values())
+    head = rpn_head_flops(RES, HEAD_BATCH)
+    log(f"  train step at batch {HEAD_BATCH} (ms, device timeline): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; total {step_ms:.3f} ({HEAD_BATCH / step_ms * 1e3:.3f} grids/s); head "
+        f"{head / 1e12:.2f} TFLOP forward, {head / parts['head'] / 1e9:.1f} TFLOP/s; peak "
+        "memory per part (GiB): " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items())
+        + f" | {smi}")
+    rows, busy_ms, span_ms = profile_device(lambda: trainer.train_step(state, batch))
+    if not rows:
+        log("  torch.profiler recorded no device time for the train step")
+    else:
+        total = sum(r[0] for r in rows)
+        log(f"  one train step under torch.profiler: device busy {busy_ms:.3f} ms of the "
+            f"{span_ms:.3f} ms from its first to its last device activity (idle share "
+            f"{1 - busy_ms / span_ms:.4f}, profiler overhead included); device time by "
+            f"kernel name, top 12 of {len(rows)}:")
+        for ms, count, key in rows[:12]:
+            log(f"    {ms:9.3f} ms  {100 * ms / total:5.1f}%  x{count:<4d} {key[:120]}")
+    pparts, ppeaks, kept = rpn_predict_breakdown(trainer, state, batch)
+    log(f"  prediction step at batch {HEAD_BATCH} (ms, wall clock with a synchronize per "
+        "part): " + ", ".join(f"{k} {v:.3f}" for k, v in pparts.items())
+        + f"; total {sum(pparts.values()):.3f}; {kept} proposals; peak memory per part "
+        "(GiB): " + ", ".join(f"{k} {v:.4f}" for k, v in ppeaks.items()) + f" | {smi}")
+    rows, busy_ms, span_ms = profile_device(lambda: trainer.predict_step(state, batch))
+    if rows:
+        log(f"  one prediction step under torch.profiler: device busy {busy_ms:.3f} ms of "
+            f"{span_ms:.3f} ms (idle share {1 - busy_ms / span_ms:.4f}); top 6 of {len(rows)}: "
+            + "; ".join(f"{ms:.3f} ms x{count} {key[:60]}" for ms, count, key in rows[:6]))
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    rpn_compare_with_plain(dev, mae_sd)
+    return ckpt
+
+
+@torch.no_grad()
+def foreground_proposals(det, batch, threshold):
+    """Per scene, the valid AABB proposals whose best IoU with a valid GT
+    box reaches `threshold`: the RoIs the RCNN can sample as foreground."""
+    counts = []
+    for bx, ok, gt, gv in zip(det["boxes"], det["valid"], batch["gt_boxes"], batch["gt_valid"]):
+        iou = box_iou_aabb(bx[ok], gt[gv])
+        counts.append(int((iou.amax(1) >= threshold).sum()) if iou.numel() else 0)
+    return counts
+
+
+def rcnn_step_breakdown(rpn_state, trainer, state, batch):
+    """CUDA-event times (ms) of the parts of one RCNN train step on the
+    device timeline, medians of 3 steps after a warm-up: the frozen body and
+    the proposals, RoI sampling and align, the head's forward, the loss and
+    backward, clip + AdamW; and the peak allocated memory within each part
+    (GiB, last step)."""
+    model, cfg = state.model, trainer.rcnn
+    model.train()
+    start, mark, finish, parts, peaks = timed_parts(
+        ("body+proposals", "sampling+roi align", "head forward", "loss+backward", "clip+adamw"))
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(57)
+    for rep in range(4):
+        start()
+        mark(0)
+        feats, det = run_rpn_detect.features_and_proposals(rpn_state, batch)
+        mark(1)
+        rois, labels, matched, sel_valid = model.sample(det["boxes"], det["valid"],
+                                                        batch["gt_boxes"], batch["gt_valid"],
+                                                        generator=gen)
+        pooled = model.pool(feats, rois)
+        mark(2)
+        deltas, scores = model.scores(pooled)
+        mark(3)
+        loss, _ = rcnn_loss(cfg, deltas, scores, rois, labels, matched, sel_valid)
+        del feats, det, pooled
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark(4)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in model.parameters()]
+        optim.clip_with_nonfinite_guard(grads, 0.1)
+        state.optimizer.step()
+        mark(5)
+        finish(rep)
+    return {k: statistics.median(v) for k, v in parts.items()}, peaks
+
+
+def phase_rcnn(dev, tmp, smi, rpn_ckpt):
+    """The RCNN second stage through run_rpn_detect over the phase's RPN
+    (restored whole, head depth 2): train, eval from its checkpoint (AP at
+    300), and the parts of a step with their peak memory."""
+    common = ["--dataset", "synthetic", "--backbone_type", "swin_s", "--resolution", str(RES),
+              "--batch_size", str(HEAD_BATCH), "--device", "cuda", "--n_synthetic",
+              str(HEAD_BATCH), "--seed", "0", "--rpn_checkpoint", rpn_ckpt]
+    ckpt = os.path.join(tmp, "rcnn_ckpt")
+    args = run_rpn_detect.parse_args(common)
+    rpn_state = run_rpn_detect.frozen_rpn(args, dev)
+    batch = det_batch(HEAD_BATCH, dev, seed=0, obb=False)  # the training scenes
+    _, det = run_rpn_detect.features_and_proposals(rpn_state, batch)
+    log(f"  the frozen RPN's {args.proposals_per_scene} proposals a scene on the training "
+        f"scenes: foreground (IoU >= {args.fg_threshold}) per scene "
+        f"{foreground_proposals(det, batch, args.fg_threshold)}")
+    del rpn_state, det
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_rpn_detect.main(["--mode", "train", *common, "--steps", str(RCNN_STEPS),
+                               "--checkpoint_dir", ckpt, "--log_interval", "1",
+                               "--ckpt_interval", "1000000"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    history = out["history"]
+    log(f"  train: {RCNN_STEPS} steps in {train_s:.1f} s (data included), losses "
+        f"{[round(h['loss'], 5) for h in history]} (cls "
+        f"{[round(h['loss_cls'], 4) for h in history]}, reg "
+        f"{[round(h['loss_reg'], 4) for h in history]}), num_pos "
+        f"{[int(h['num_pos']) for h in history]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in history]}, grids/s with the host's batch "
+        f"{[round(h['grids_per_sec'], 3) for h in history]}, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if (launches["block"], launches["block_bwd"]) != (22 * RCNN_STEPS, 0):
+        raise AssertionError(f"RCNN train launches {launches}, expected {22 * RCNN_STEPS} "
+                             "fused-block forward and no backward (the body is frozen)")
+    if len(history) != RCNN_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history) \
+            or not any(h["num_pos"] > 0 for h in history):
+        raise AssertionError(f"RCNN train history not finite or without positives: {history}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    agg = run_rpn_detect.main(["--mode", "eval", *common, "--checkpoint", ckpt])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  eval from the checkpoint ({eval_ms:.1f} ms for the run_rpn_detect call, model "
+        f"set-up and data included): " + ", ".join(f"{k} {v:.4f}" for k, v in agg.items()))
+    if not agg or not all(math.isfinite(v) and 0 <= v <= 1 for v in agg.values()):
+        raise AssertionError(f"RCNN eval from the checkpoint failed: {agg}")
+    torch.cuda.empty_cache()
+
+    rpn_state = run_rpn_detect.frozen_rpn(args, dev)
+    trainer = RCNNTrainer(run_rpn_detect.rcnn_config(args), TrainConfig(), 100, dev)
+    state = trainer.init(0)
+    parts, peaks = rcnn_step_breakdown(rpn_state, trainer, state, batch)
+    step_ms = sum(parts.values())
+    rois = HEAD_BATCH * trainer.rcnn.rois_per_scene
+    head = rcnn_head_flops(rois)
+    log(f"  train step at batch {HEAD_BATCH}, {rois} RoIs (ms, device timeline): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; total {step_ms:.3f} ({HEAD_BATCH / step_ms * 1e3:.3f} grids/s); head "
+        f"{head / 1e12:.3f} TFLOP forward (float32), "
+        f"{head / parts['head forward'] / 1e9:.1f} TFLOP/s; peak memory per part (GiB): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()) + f" | {smi}")
+    del rpn_state, trainer, state, batch
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1886,8 +2366,13 @@ def main() -> int:
             "from the same MAE checkpoint (launch/train_fcos_pretrained.sh's flags), eval, "
             "benchmarks (OBB and AABB)")
         phase_fcos(dev, tmp, smi, mae_ckpt)
+        log(f"[15] anchor RPN + RCNN: AABB, swin_s {RES}^3, batch {HEAD_BATCH}, {RPN_STEPS} RPN "
+            "steps from the same MAE checkpoint (launch/train_rpn.sh's flags), eval, "
+            f"benchmarks (AABB and OBB); then {RCNN_STEPS} RCNN steps over that RPN, eval")
+        rpn_ckpt = phase_rpn(dev, tmp, smi, mae_ckpt)
+        phase_rcnn(dev, tmp, smi, rpn_ckpt)
 
-    log(f"[15] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log(f"[16] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

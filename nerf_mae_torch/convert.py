@@ -12,7 +12,9 @@ plus the subpixel head, which has no reference name and keeps its own
 
 `head_params_from_jax` maps the JAX VoxelSR3D / VoxelSemantics3D trees the
 same way (`base/...` as the MAE, `encoder1/conv*`, `decoder1/...`,
-`voxel_out/conv`, `sem_out/conv`). `adamw_state_from_jax` carries an optax
+`voxel_out/conv`, `sem_out/conv`), and `det_params_from_jax`,
+`rpn_params_from_jax` and `rcnn_params_from_jax` the FCOS detector, the
+anchor RPN and the RCNN stage. `adamw_state_from_jax` carries an optax
 adamw state (the moments are trees
 shaped like the parameters, so they map the same way) into the port's
 torch.optim.AdamW.
@@ -193,7 +195,7 @@ def head_params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig,
 
 
 def _map_det_key(path: str, swin_body: bool) -> Tuple[str, Optional[Callable]]:
-    """A FCOSDetector leaf: a Swin body's trunk keeps the MAE's names
+    """A FCOSDetector or NeRFRPN leaf: a Swin body's trunk keeps the MAE's names
     (patch_embed, patch_norm, encoder -> patch_partition, stages); every
     other leaf is a conv (`kernel` -> `weight`), a GroupNorm (`scale` ->
     `weight`), a bias, or the head's per-level `scales`, under its module
@@ -225,6 +227,42 @@ def det_params_from_jax(tree_or_flat: Mapping, swin, fcos, backbone: str = "swin
                .state_dict().keys())
     swin_body = backbone.startswith("swin")
     return _convert(tree_or_flat, lambda p: _map_det_key(p, swin_body), want)
+
+
+def rpn_params_from_jax(tree_or_flat: Mapping, swin, rpn, backbone: str = "swin_s",
+                        out_channels: int = 256) -> Dict[str, torch.Tensor]:
+    """JAX NeRFRPN params (nested or "/"-flat, as numpy) for (swin, rpn,
+    backbone) -> the port RPN's state_dict (CPU float32 tensors): the body
+    as det_params_from_jax maps it, the head's convs (`head/conv{i}`,
+    `cls_logits`, `bbox_pred`). Raises on a missing or unknown parameter."""
+    from nerf_mae_torch.models.rpn import NeRFRPN
+
+    want = set(NeRFRPN(swin, rpn, backbone, out_channels, device="meta").state_dict().keys())
+    swin_body = backbone.startswith("swin")
+    return _convert(tree_or_flat, lambda p: _map_det_key(p, swin_body), want)
+
+
+def _map_rcnn_key(path: str) -> Tuple[str, Optional[Callable]]:
+    """An RCNNStage leaf: head/conv{i} convs, head/bbox_pred and
+    head/cls_score dense layers (kernel [in, out] -> weight [out, in]; the
+    inputs are the channel-last flatten on both sides)."""
+    m = re.fullmatch(r"head/(conv\d+|bbox_pred|cls_score)/(kernel|bias)", path)
+    if not m:
+        raise KeyError(path)
+    if m.group(2) == "bias":
+        return f"head.{m.group(1)}.bias", None
+    return f"head.{m.group(1)}.weight", _conv if m.group(1).startswith("conv") else _lin
+
+
+def rcnn_params_from_jax(tree_or_flat: Mapping, cfg, in_channels: int = 256
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX RCNNStage params (nested or "/"-flat, as numpy) for RCNNConfig
+    `cfg` -> the port stage's state_dict (CPU float32 tensors). Raises on a
+    missing or unknown parameter."""
+    from nerf_mae_torch.models.rcnn import RCNNStage
+
+    want = set(RCNNStage(cfg, in_channels, device="meta").state_dict().keys())
+    return _convert(tree_or_flat, _map_rcnn_key, want)
 
 
 def _check_keys(sd: Mapping, want: set) -> None:

@@ -23,6 +23,7 @@ from torch import nn
 
 from nerf_mae_torch.config import SwinConfig
 from nerf_mae_torch.models.fpn import FPN3D
+from nerf_mae_torch.models.mae import init_weights as init_trunk_weights
 from nerf_mae_torch.models.mae import patch_embed, pos_embed_tensor
 from nerf_mae_torch.models.swin import Norm, SwinEncoder3D, flax_layer_norm
 from nerf_mae_torch.models.unetr import Conv3d, group_norm
@@ -159,3 +160,44 @@ class VGGFPN(nn.Module):
             if i >= 1:
                 feats.append(x)
         return self.fpn(feats)
+
+
+def make_body(backbone: str, swin: SwinConfig, out_channels: int = 256,
+              dtype: torch.dtype = torch.bfloat16, remat: bool = True, device=None) -> nn.Module:
+    """"swin_t/s/b/l/nano" (SwinFPN, graftable from a MAE), "resnet",
+    "vgg_AF" or "vgg_EF"."""
+    if backbone.startswith("swin"):
+        return SwinFPN(swin, out_channels=out_channels, dtype=dtype, remat=remat, device=device)
+    if backbone == "resnet":
+        return ResNetFPN(out_channels=out_channels, dtype=dtype, device=device)
+    if backbone.startswith("vgg"):
+        return VGGFPN(backbone.split("_")[1], out_channels=out_channels, dtype=dtype,
+                      device=device)
+    raise ValueError(f"unknown backbone {backbone}")
+
+
+@torch.no_grad()
+def init_body(body: nn.Module, seed: int) -> torch.Generator:
+    """Random weights of a detection body from `seed`: a Swin trunk as
+    models.mae.init_weights makes it, xavier-uniform FPN kernels, fan-in
+    normal kernels in the ResNet / VGG bodies, GroupNorm ones / zeros, zero
+    biases. Returns the generator, seeded by `seed` and advanced past the
+    body's draws, for the head's initializers."""
+    dev = next(body.parameters()).device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if isinstance(body, SwinFPN):
+        init_trunk_weights(body, seed)
+    for name, p in body.named_parameters():
+        if name.startswith(("patch_partition.", "stages.")):
+            continue
+        if name.startswith("fpn.") and p.ndim == 5:
+            fan_in, fan_out = p[0].numel(), p[:, 0].numel()
+            lim = (6.0 / (fan_in + fan_out)) ** 0.5
+            p.uniform_(-lim, lim, generator=gen)
+        elif p.ndim == 5:
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+        else:  # GroupNorm scale / bias, conv biases
+            is_scale = name.endswith("weight") and p.ndim == 1
+            p.fill_(1.0 if is_scale else 0.0)
+    return gen

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from nerf_mae_torch.config import SwinConfig
-from nerf_mae_torch.models.backbones import ResNetFPN, SwinFPN, VGGFPN
+from nerf_mae_torch.models.backbones import init_body, make_body
 from nerf_mae_torch.models.fcos import (
     FCOSConfig,
     FCOSHead,
@@ -29,7 +29,6 @@ from nerf_mae_torch.models.fcos import (
     fcos_objectness,
     fcos_postprocess,
 )
-from nerf_mae_torch.models.mae import init_weights as init_trunk_weights
 
 
 class FCOSDetector(nn.Module):
@@ -41,42 +40,14 @@ class FCOSDetector(nn.Module):
         super().__init__()
         self.fcos, self.backbone = fcos, backbone
         self.output_objectness = output_objectness
-        if backbone.startswith("swin"):
-            self.body = SwinFPN(swin, out_channels=out_channels, dtype=dtype, remat=remat,
-                                device=device)
-        elif backbone == "resnet":
-            self.body = ResNetFPN(out_channels=out_channels, dtype=dtype, device=device)
-        elif backbone.startswith("vgg"):
-            self.body = VGGFPN(backbone.split("_")[1], out_channels=out_channels, dtype=dtype,
-                               device=device)
-        else:
-            raise ValueError(f"unknown backbone {backbone}")
+        self.body = make_body(backbone, swin, out_channels, dtype, remat, device)
         self.head = FCOSHead(fcos, out_channels, dtype=dtype, device=device)
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> "FCOSDetector":
-        """Random weights from `seed`: a Swin trunk as models.mae.init_weights
-        makes it, xavier-uniform FPN kernels, fan-in normal kernels in the
-        ResNet / VGG bodies, GroupNorm ones / zeros, zero biases, and the
-        head's own initializers (FCOSHead.init_weights)."""
-        dev = self.head.scales.device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        if isinstance(self.body, SwinFPN):
-            init_trunk_weights(self.body, seed)
-        for name, p in self.body.named_parameters():
-            if name.startswith(("patch_partition.", "stages.")):
-                continue
-            if name.startswith("fpn.") and p.ndim == 5:
-                fan_in, fan_out = p[0].numel(), p[:, 0].numel()
-                lim = (6.0 / (fan_in + fan_out)) ** 0.5
-                p.uniform_(-lim, lim, generator=gen)
-            elif p.ndim == 5:
-                p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
-            else:  # GroupNorm scale / bias, conv biases
-                is_scale = name.endswith("weight") and p.ndim == 1
-                p.fill_(1.0 if is_scale else 0.0)
-        self.head.init_weights(gen)
+        """Random weights from `seed`: the body as init_body makes them,
+        then the head's own initializers (FCOSHead.init_weights)."""
+        self.head.init_weights(init_body(self.body, seed))
         return self
 
     def forward(self, grids: torch.Tensor, sizes: torch.Tensor,

@@ -333,9 +333,8 @@ def fcos_select(cfg: FCOSConfig, cand: Dict[str, torch.Tensor]) -> Dict[str, tor
     boxes [B, K, 7], scores [B, K] (0 where invalid), levels [B, K], valid
     [B, K]."""
     boxes, scores, valid = cand["boxes"], cand["scores"], cand["valid"]
-    keep = torch.stack([
-        nms_mask(nms_boxes(cfg, boxes[i]), scores[i], cfg.nms_thresh, valid=valid[i],
-                 max_keep=cfg.post_nms_top_n) for i in range(boxes.shape[0])])
+    keep = nms_mask(nms_boxes(cfg, boxes), scores, cfg.nms_thresh, valid=valid,
+                    max_keep=cfg.post_nms_top_n)
     k_out = min(cfg.post_nms_top_n, boxes.shape[1])
     final = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
     top_idx = sort_desc(final)[:, :k_out]

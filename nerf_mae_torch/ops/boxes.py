@@ -12,19 +12,20 @@ import torch
 
 
 def box_volume(boxes: torch.Tensor) -> torch.Tensor:
-    """[N, 6] -> [N] volumes."""
-    whd = boxes[:, 3:6] - boxes[:, 0:3]
-    return whd[:, 0] * whd[:, 1] * whd[:, 2]
+    """[..., 6] -> [...] volumes."""
+    whd = boxes[..., 3:6] - boxes[..., 0:3]
+    return whd[..., 0] * whd[..., 1] * whd[..., 2]
 
 
 def box_iou_aabb(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU: [N, 6] x [M, 6] -> [N, M]
-    (reference: fcos/utils.py:229-298 _box_inter_union_3d)."""
-    lt = torch.maximum(boxes1[:, None, :3], boxes2[None, :, :3])
-    rb = torch.minimum(boxes1[:, None, 3:6], boxes2[None, :, 3:6])
+    """Pairwise IoU: [..., N, 6] x [..., M, 6] -> [..., N, M], over any
+    matching leading dims (reference: fcos/utils.py:229-298
+    _box_inter_union_3d)."""
+    lt = torch.maximum(boxes1[..., :, None, :3], boxes2[..., None, :, :3])
+    rb = torch.minimum(boxes1[..., :, None, 3:6], boxes2[..., None, :, 3:6])
     whd = torch.clamp(rb - lt, min=0.0)
     inter = whd[..., 0] * whd[..., 1] * whd[..., 2]
-    union = box_volume(boxes1)[:, None] + box_volume(boxes2)[None, :] - inter
+    union = box_volume(boxes1)[..., :, None] + box_volume(boxes2)[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-9)
 
 
@@ -63,3 +64,13 @@ def obb_to_aabb(boxes: torch.Tensor) -> torch.Tensor:
     ex = (w * cos + l * sin) / 2
     ey = (w * sin + l * cos) / 2
     return torch.stack([cx - ex, cy - ey, cz - h / 2, cx + ex, cy + ey, cz + h / 2], dim=-1)
+
+
+def unit_box_where(mask: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """boxes [..., 6|7] where mask [...], else a unit box at the origin: the
+    placeholder the IoU losses and the coders take where a box is not used
+    (a degenerate box has NaN log-size deltas and gradients, which a later
+    mask does not stop: 0 * NaN = NaN)."""
+    unit = torch.zeros(boxes.shape[-1], dtype=boxes.dtype, device=boxes.device)
+    unit[3:6] = 1.0  # filled on the device: a host tensor's copy would wait for the card
+    return torch.where(mask[..., None], boxes, unit)

@@ -26,6 +26,10 @@ from nerf_mae_torch.ops.boxes import box_iou_aabb
 from nerf_mae_torch.ops.fcos_box import obb_footprint_aabb
 from nerf_mae_torch.ops.rotated_iou import PAIRS_PER_CHUNK, iou_3d
 
+# AABB pairs of the suppress matrices per chunk: ~60 bytes of temporaries a
+# pair, so ~1 GB at a time
+AABB_PAIRS_PER_CHUNK = 1 << 24
+
 
 def sort_desc(scores: torch.Tensor) -> torch.Tensor:
     """Indices of a stable descending sort along the last dim (equal scores
@@ -56,25 +60,35 @@ def extents_overlap(boxes: torch.Tensor, rows: slice) -> torch.Tensor:
 @torch.no_grad()
 def suppress_matrix(boxes: torch.Tensor, iou_threshold: float,
                     pairs_per_chunk: int = PAIRS_PER_CHUNK) -> torch.Tensor:
-    """[N, N] bool, True at j < i where IoU(boxes[j], boxes[i]) >
+    """[..., N, N] bool, True at j < i where IoU(boxes[j], boxes[i]) >
     iou_threshold, False elsewhere: the strict upper triangle, all that the
     greedy scan reads (a box's IoU with itself, where corners lie on edges,
-    is not even well defined by the polygon). AABB [N, 6] or OBB [N, 7], on
-    the boxes' device, in row chunks. For OBBs the rotated IoU is computed
-    only for the pairs whose extents overlap (extents_overlap): the others
-    have IoU 0, not above a threshold >= 0."""
+    is not even well defined by the polygon). AABB [..., N, 6] or OBB
+    [..., N, 7], on the boxes' device, in row chunks. The AABB matrices of
+    all leading indices are made together, AABB_PAIRS_PER_CHUNK pairs a
+    chunk (each entry the same elementwise arithmetic); the OBB ones one at
+    a time, where the rotated IoU is computed only for the pairs whose
+    extents overlap (extents_overlap): the others have IoU 0, not above a
+    threshold >= 0."""
     if iou_threshold < 0:
         raise ValueError(f"iou_threshold {iou_threshold} < 0")
-    n = boxes.shape[0]
+    n = boxes.shape[-2]
+    if boxes.shape[-1] == 6:
+        # a row holds one box's pairs in every matrix
+        rows = max(1, AABB_PAIRS_PER_CHUNK // max(boxes[..., 0].numel(), 1))
+        col = torch.arange(n, device=boxes.device)
+        out = torch.zeros(boxes.shape[:-1] + (n,), dtype=torch.bool, device=boxes.device)
+        for s in range(0, n, rows):
+            out[..., s: s + rows, :] = (box_iou_aabb(boxes[..., s: s + rows, :], boxes)
+                                        > iou_threshold) & (col[None, :] > col[s: s + rows, None])
+        return out
+    if boxes.ndim > 2:
+        return torch.stack([suppress_matrix(b, iou_threshold, pairs_per_chunk)
+                            for b in boxes.reshape(-1, n, 7)]).reshape(boxes.shape[:-1] + (n,))
     rows = max(1, pairs_per_chunk // max(n, 1))
     col = torch.arange(n, device=boxes.device)
     upper = lambda s: col[None, :] > col[s: s + rows, None]
     out = torch.zeros((n, n), dtype=torch.bool, device=boxes.device)
-    if boxes.shape[-1] == 6:
-        for s in range(0, n, rows):
-            out[s: s + rows] = (box_iou_aabb(boxes[s: s + rows], boxes) > iou_threshold
-                                ) & upper(s)
-        return out
     js, is_ = [], []
     for s in range(0, n, rows):
         j, i = torch.nonzero(extents_overlap(boxes, slice(s, s + rows)) & upper(s),
@@ -90,20 +104,23 @@ def suppress_matrix(boxes: torch.Tensor, iou_threshold: float,
 
 @torch.no_grad()
 def greedy_keep(suppress: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """The greedy scan over candidates in visiting order: suppress [N, N]
-    bool (row j = a higher-ranked box; only j < i is read), valid [N] bool ->
-    keep [N] bool, on their device. keep[i] = valid[i] and no kept j < i has
-    suppress[j, i] (the JAX fori_loop). Computed as a fixed-point iteration,
-    keep <- valid & ~(keep @ suppress > 0), a matrix-vector product per
-    round: an entry whose longest chain of earlier suppressors has length t
-    is final after t + 1 rounds, and a round that changes nothing ends it.
-    The sums count kept suppressors, so any positive sum is exact in fp16."""
+    """The greedy scan over candidates in visiting order: suppress [..., N,
+    N] bool (row j = a higher-ranked box; only j < i is read), valid [..., N]
+    bool -> keep [..., N] bool, on their device, each leading index its own
+    scan. keep[i] = valid[i] and no kept j < i has suppress[j, i] (the JAX
+    fori_loop). Computed as a fixed-point iteration, keep <- valid & ~(keep
+    @ suppress > 0), a (batched) matrix-vector product per round: an entry
+    whose longest chain of earlier suppressors has length t is final after
+    t + 1 rounds, and a round that changes nothing ends it. The sums count
+    kept suppressors, so any positive sum is exact in fp16 (no term is
+    negative)."""
     s = torch.triu(suppress, diagonal=1).to(torch.float16 if suppress.is_cuda
                                             else torch.float32)
     keep = valid
     while True:
         for _ in range(4):  # check for the fixed point every 4 rounds
-            prev, keep = keep, valid & ~((keep.to(s.dtype) @ s) > 0)
+            hits = torch.matmul(keep.unsqueeze(-2).to(s.dtype), s).squeeze(-2)
+            prev, keep = keep, valid & ~(hits > 0)
         if torch.equal(keep, prev):
             return keep
 
@@ -111,21 +128,23 @@ def greedy_keep(suppress: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              valid: Optional[torch.Tensor] = None,
              max_keep: Optional[int] = None) -> torch.Tensor:
-    """Greedy NMS: boxes [N, 6] (AABB) or [N, 7] (OBB) -> keep [N] bool on
-    the boxes' device. Candidates are visited in descending score order (a
-    stable sort of the valid scores, invalid ones last); a candidate is kept
-    iff it is valid and no already-kept higher-ranked box has IoU > threshold
-    with it; at most `max_keep` are kept."""
-    n = boxes.shape[0]
+    """Greedy NMS: boxes [..., N, 6] (AABB) or [..., N, 7] (OBB), scores
+    [..., N] -> keep [..., N] bool on the boxes' device, each leading index
+    its own candidate set, their greedy scans run together. Candidates are
+    visited in descending score order (a stable sort of the valid scores,
+    invalid ones last); a candidate is kept iff it is valid and no
+    already-kept higher-ranked box has IoU > threshold with it; at most
+    `max_keep` are kept."""
+    n, d = boxes.shape[-2:]
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=boxes.device)
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=boxes.device)
     order = sort_desc(torch.where(valid, scores, torch.full_like(scores, float("-inf"))))
-    keep_sorted = greedy_keep(suppress_matrix(boxes[order], iou_threshold), valid[order])
+    ordered = torch.gather(boxes, -2, order.unsqueeze(-1).expand(*order.shape, d))
+    keep_sorted = greedy_keep(suppress_matrix(ordered, iou_threshold),
+                              torch.gather(valid, -1, order))
     if max_keep is not None:
-        keep_sorted = keep_sorted & (torch.cumsum(keep_sorted, 0) <= max_keep)
-    keep = torch.zeros((n,), dtype=torch.bool, device=boxes.device)
-    keep[order] = keep_sorted
-    return keep
+        keep_sorted = keep_sorted & (torch.cumsum(keep_sorted, -1) <= max_keep)
+    return torch.zeros_like(valid).scatter(-1, order, keep_sorted)
 
 
 def topk_by_score(scores: torch.Tensor, k: int, valid: Optional[torch.Tensor] = None):

@@ -1,14 +1,17 @@
 """CPU tests of chip_smoke.py's host-side helpers: the ptxas summary of the
-kernel build, the work / bound arithmetic behind the kernels line, and
+kernel build, the work / bound arithmetic behind the kernels line,
 phase 14's FCOS tower work count, NMS flip counter, clustered NMS
-candidates, host scan and parameter groups."""
+candidates, host scan and parameter groups, and phase 15's RPN and RCNN
+work counts, configurations and pairwise IoU."""
 
 import chip_smoke
 import numpy as np
 import torch
 
-from nerf_mae_torch import kernels
+from nerf_mae_torch import kernels, run_rpn, run_rpn_detect
 from nerf_mae_torch.ops import nms
+from nerf_mae_torch.ops.boxes import box_iou_aabb
+from nerf_mae_torch.ops.rotated_iou import iou_3d
 
 PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN4swin9sum_partsEPKfixPf' for 'sm_90a'
 ptxas info    : Function properties for _ZN4swin9sum_partsEPKfixPf
@@ -149,3 +152,53 @@ def test_detector_parameter_groups():
     assert (cfg.use_obb, cfg.iou_loss_type, cfg.center_sampling_radius) == (True, "iou", 1.5)
     assert (cfg.pre_nms_top_n, cfg.post_nms_top_n, cfg.nms_thresh, cfg.max_gt) == (
         2500, 2500, 0.3, 64)
+
+
+def test_rpn_and_rcnn_work_counts():
+    """The RPN head at swin_s 160^3, batch 8: each 3^3 conv over 40^3 is
+    1.81 TFLOP, the head 4.17 TFLOP a forward with the other levels and the
+    1^3 convs; the RCNN head over 8 x 128 RoIs of 5^3 is 0.91 TFLOP."""
+    level0_conv = 2 * 27 * 256 * 256 * 40**3 * 8
+    assert abs(level0_conv / 1e12 - 1.812) < 1e-3
+    flops = chip_smoke.rpn_head_flops(160, 8)
+    assert flops == 73125 * 8 * 2 * 256 * (2 * 27 * 256 + 13 * 7)
+    assert abs(flops / 1e12 - 4.17) < 0.01
+    rcnn = chip_smoke.rcnn_head_flops(8 * 128)
+    assert rcnn == 1024 * 125 * 2 * 256 * (2 * 27 * 256 + 8)
+    assert abs(rcnn / 1e12 - 0.906) < 1e-3
+
+
+def test_phase15_runs_the_launch_files_configuration():
+    """run_rpn with RPN_FLAGS builds chip_smoke.rpn_config() (head depth 2,
+    AABB, smooth-L1, 2500 proposals, NMS 0.3, fg / bg 0.35 / 0.2, 256
+    anchors a scene, 64 GT), the flags are launch/train_rpn.sh's, and
+    run_rpn_detect's defaults are 128 RoIs of 5^3 over 256 proposals."""
+    args = run_rpn.parse_args([*chip_smoke.RPN_FLAGS, "--resolution", str(chip_smoke.RES)])
+    cfg = chip_smoke.rpn_config()
+    assert run_rpn.rpn_config(args) == cfg
+    assert (cfg.conv_depth, cfg.rotated_bbox, cfg.reg_loss_type, cfg.pre_nms_top_n,
+            cfg.post_nms_top_n, cfg.nms_thresh, cfg.max_gt) == (2, False, "smooth_l1", 2500,
+                                                                  2500, 0.3, 64)
+    assert (cfg.fg_iou_thresh, cfg.bg_iou_thresh, cfg.batch_size_per_mesh) == (0.35, 0.2, 256)
+    with open("launch/train_rpn.sh") as f:
+        launch = " ".join(f.read().split())
+    for flag, value in zip(chip_smoke.RPN_FLAGS[::2], chip_smoke.RPN_FLAGS[1::2]):
+        assert f"{flag} {value}" in launch
+    assert "--backbone_type swin_s --resolution 160" in launch and "--batch_size 8" in launch
+    assert "--rotated_bbox" not in launch
+    rcnn = run_rpn_detect.rcnn_config(run_rpn_detect.parse_args([]))
+    assert (rcnn.rois_per_scene, rcnn.output_size, rcnn.conv_depth, rcnn.rotated) == (
+        128, 5, 2, False)
+    assert run_rpn_detect.parse_args([]).proposals_per_scene == 256
+
+
+def test_pair_iou_of_aabbs_and_obbs():
+    rs = np.random.RandomState(0)
+    lo = rs.uniform(0, 10, (5, 3))
+    aabb = torch.from_numpy(np.concatenate([lo, lo + rs.uniform(2, 8, (5, 3))], 1).astype(
+        np.float32))
+    want = box_iou_aabb(aabb, aabb)
+    assert chip_smoke.pair_iou(aabb, 1, 3) == want[1, 3] and want[1, 3] >= 0
+    obb = torch.cat([(aabb[:, :3] + aabb[:, 3:]) / 2, aabb[:, 3:] - aabb[:, :3],
+                     torch.full((5, 1), 0.3)], 1)
+    assert torch.equal(chip_smoke.pair_iou(obb, 0, 2), iou_3d(obb[0], obb[2]))
