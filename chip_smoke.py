@@ -96,7 +96,24 @@ Phases (any failure raises and the exit code is not 0):
      300 (AP) and times the parts of its step (body + proposals, sampling +
      RoI align, head forward, loss + backward, clip + AdamW) with their peak
      memory;
- 16. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 16. the training feed: `run_mae_pretrain.main` trains swin_b 160^3 at
+     batch 8 for 15 steps from 16 scenes on disk (uncompressed npz, odd
+     sizes up to 159^3) through four feeds: inline (--prefetch 0 --workers
+     0), the pipeline (--prefetch 2 --workers 8, native collate), and
+     --device_data with float32 and with bf16 transfer; for each, the
+     wall-clock ms/step over steps 5-12 (a synchronize at each end),
+     grids/s, the device's idle share under torch.profiler over steps
+     13-15, peak memory, host-to-device bytes a step and 22 + 22 fused-block
+     launches a step, beside the resident-batch benchmark of phase 7 and
+     the host iterator alone at 0, 4 and 8 workers; the losses of steps
+     1-15 of inline, pipeline and device float32 bitwise equal, bf16 within
+     2e-2 of inline; every native collate function against numpy at 160^3
+     (rotate_scale to 1.5e-4: float32 against float64 positions); then
+     launch/e2e_synthetic_ap_torch.sh's stages in process, cut (swin_s
+     96^3, 32 hard scenes, MAE 60 steps traced to --profile_dir, FCOS 40
+     steps grafted and 40 from scratch, eval on 8 scenes): both eval dicts
+     finite, a trace written;
+ 17. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -122,7 +139,15 @@ from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain, run_
                             run_rpn_detect, run_voxel_semantics, run_voxel_sr)
 from nerf_mae_torch.common import load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
-from nerf_mae_torch.data import detection_batch_iterator, synthetic_detection_scenes
+from nerf_mae_torch.data import (
+    SceneDataset,
+    detection_batch_iterator,
+    mae_batch_iterator,
+    native,
+    rotate_and_scale_scene,
+    synthetic_detection_scenes,
+)
+from nerf_mae_torch.ops.patchify import patchify_np
 from nerf_mae_torch.models import heads
 from nerf_mae_torch.models.detector import FCOSDetector
 from nerf_mae_torch.models.fcos import (
@@ -939,12 +964,17 @@ def profile_device(fn):
     launches, kernel name), sorted by time; the union of the device
     activities' intervals and the span from the first one's start to the
     last one's end (both 0 when the profiler recorded no device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return profile_summary(prof)
+
+
+def profile_summary(prof):
+    """profile_device's (rows, busy_ms, span_ms) of a finished profiler."""
+    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -2279,6 +2309,294 @@ def phase_rcnn(dev, tmp, smi, rpn_ckpt):
     torch.cuda.empty_cache()
 
 
+# The training feed (phase 16): run_mae_pretrain at swin_b 160^3, batch 8,
+# fed from scenes on disk through four feeds
+FEED_SCENES = 16
+FEED_WARM = 4  # steps before the timed window (steps 5-12 are timed)
+FEED_STEPS = 12  # steps whose losses are compared across the feeds
+FEED_PROFILE = 3  # steps after those, under torch.profiler (idle share)
+FEEDS = (
+    ("inline", ("--prefetch", "0", "--workers", "0")),
+    ("pipeline", ("--prefetch", "2", "--workers", "8")),
+    ("device f32", ("--device_data",)),
+    ("device bf16", ("--device_data", "--transfer_dtype", "bfloat16")),
+)
+BF16_FEED_REL = 2e-2  # bf16 targets and inputs: each loss within 2e-2 of inline's
+ROTATE_SCALE_ATOL = 1.5e-4  # float32 (C++) against float64 (numpy) sample
+# positions: ten float32 ulps at index 160 (the JAX test's 1e-5 is at 9^3)
+HOST_WORKERS = (0, 4, 8)
+# the e2e AP recipe (launch/e2e_synthetic_ap_torch.sh), cut for liveness
+E2E = dict(res=96, backbone="swin_s", scenes=32, ft_scenes=12, val_scenes=8, mae_steps=60,
+           det_steps=40)
+
+
+def write_feed_scenes(root: str, seed: int, n: int = FEED_SCENES, lo: int = 64):
+    """n synthetic scenes of odd sizes (2 * [lo, 80] - 1, up to 159 a side)
+    as uncompressed npz, rgb in [0, 1] and raw density, from a numpy
+    seed."""
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i in range(n):
+        size = tuple(int(s) for s in rs.randint(lo, 81, size=3) * 2 - 1)
+        grid = np.empty(size + (4,), np.float32)
+        grid[..., :3] = rs.rand(*size, 3)
+        grid[..., 3] = rs.randn(*size) * 3
+        np.savez(os.path.join(root, f"scene{i:02d}.npz"), rgbsigma=grid)
+    return root
+
+
+def feed_bytes_per_step(feed: str, batch: int, resolution: int) -> int:
+    """Host-to-device bytes of one step's batch: the float32 (or bf16)
+    grids and the int32 sizes of a host feed, the int64 index vector of a
+    device feed (its corpus is uploaded once, before the first step)."""
+    if feed.startswith("device"):
+        return batch * 8
+    itemsize = 2 if feed.endswith("bf16") else 4
+    return batch * resolution ** 3 * 4 * itemsize + batch * 3 * 4
+
+
+def feed_losses_agree(histories, rel=BF16_FEED_REL):
+    """The feeds' per-step losses: the inline, pipeline and device f32
+    lists bitwise equal, the device bf16 list finite and each loss within
+    `rel` of inline's. Returns a list of the failures (empty: agreed)."""
+    base = histories["inline"]
+    failed = [f"{name} differs from inline" for name in ("pipeline", "device f32")
+              if histories[name] != base]
+    bf16 = histories["device bf16"]
+    if len(bf16) != len(base) or not all(math.isfinite(x) for x in bf16):
+        failed.append(f"device bf16 losses not finite: {bf16}")
+    else:
+        worst = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(bf16, base))
+        if worst > rel:
+            failed.append(f"device bf16 differs from inline by {worst:.3e} > {rel}")
+    return failed
+
+
+class FeedRecorder:
+    """Stands in for run_mae_pretrain's MAETrainer during one feed's run:
+    records every step's loss (a device tensor, read after the run), the
+    host clock from a synchronize before step FEED_WARM + 1 to one after
+    step FEED_STEPS, and torch.profiler over the FEED_PROFILE steps after
+    those."""
+
+    def __init__(self, base):
+        self.base = base
+        self.losses, self.t0, self.t1, self.prof = [], None, None, None
+
+    def trainer(self, *args, **kw):
+        rec = self
+        from torch.profiler import ProfilerActivity, profile
+
+        class Recorded(self.base):
+            def train_step(self, state, batch, token_mask=None):
+                step = state.step + 1
+                if step == FEED_WARM + 1:
+                    torch.cuda.synchronize()
+                    rec.t0 = time.perf_counter()
+                if step == FEED_STEPS + 1:
+                    torch.cuda.synchronize()
+                    rec.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    rec.prof.start()
+                state, m = super().train_step(state, batch, token_mask)
+                rec.losses.append(m["loss"])
+                if step == FEED_STEPS:
+                    torch.cuda.synchronize()
+                    rec.t1 = time.perf_counter()
+                if step == FEED_STEPS + FEED_PROFILE:
+                    torch.cuda.synchronize()
+                    rec.prof.stop()
+                return state, m
+
+        return Recorded(*args, **kw)
+
+
+def run_feed(name, flags, features, tmp):
+    """run_mae_pretrain.main through one feed; its numbers and launches."""
+    original = run_mae_pretrain.MAETrainer
+    rec = FeedRecorder(original)
+    steps = FEED_STEPS + FEED_PROFILE
+    ckpt = os.path.join(tmp, "ckpt_" + name.replace(" ", "_"))
+    run_mae_pretrain.MAETrainer = rec.trainer
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        run_mae_pretrain.main([
+            "--mode", "train", "--dataset", "front3d", "--features_path", features,
+            "--backbone_type", "swin_b", "--resolution", str(RES), "--batch_size",
+            str(TRAIN_BATCH), "--steps", str(steps), "--device", "cuda", "--seed", "0",
+            "--checkpoint_dir", ckpt, "--log_interval", str(steps),
+            "--eval_interval", "1000000", "--ckpt_interval", "1000000", *flags])
+    finally:
+        run_mae_pretrain.MAETrainer = original
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = read_launches()
+    _, busy_ms, span_ms = profile_summary(rec.prof)
+    timed = FEED_STEPS - FEED_WARM
+    ms = (rec.t1 - rec.t0) * 1e3 / timed
+    return {
+        "losses": [float(x) for x in rec.losses],
+        "ms": ms, "grids_per_sec": TRAIN_BATCH / (ms / 1e3),
+        "idle_share": 1 - busy_ms / span_ms if span_ms else float("nan"),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "h2d_bytes": feed_bytes_per_step(name, TRAIN_BATCH, RES),
+        "launches": launches, "steps": steps,
+    }
+
+
+def time_host_feed(features, workers, batches=2):
+    """Seconds a batch of the host iterator alone takes (disk scenes,
+    patch-major, batch 8) with `workers` threads."""
+    ds = SceneDataset(features)
+    it = mae_batch_iterator(ds, TRAIN_BATCH, RES, seed=0, workers=workers, patch_major=4)
+    next(it)  # the library built, the page cache warm
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    it.close()
+    return (time.perf_counter() - t0) / batches
+
+
+def time_host_parts(features, scenes=3):
+    """Median host ms a scene of the disk loader's parts, on `scenes`
+    scenes: reading the npz (np.load, the copies to float32), density to
+    alpha, and the native pad + patchify."""
+    from nerf_mae_torch.data.datasets import density_to_alpha
+    parts = {"read": [], "alpha": [], "pad_to_patches": []}
+    for name in sorted(os.listdir(features))[:scenes]:
+        t0 = time.perf_counter()
+        with np.load(os.path.join(features, name)) as f:
+            g = np.array(f["rgbsigma"]).astype(np.float32)
+        t1 = time.perf_counter()
+        g[..., -1] = density_to_alpha(g[..., -1])
+        t2 = time.perf_counter()
+        native.pad_to_patches(g, RES, 4)
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_feed(dev, smi, bench):
+    """(a) the swin_b MAE main path fed from disk through four feeds,
+    (b) the native collate against numpy at 160^3, (c) the e2e AP recipe
+    cut for liveness."""
+    if not native.available():
+        raise AssertionError("the native collate did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        features = write_feed_scenes(os.path.join(tmp, "features"), seed=160)
+        log(f"  {FEED_SCENES} scenes on disk (odd sizes up to 159^3, uncompressed npz); "
+            f"host os.cpu_count() {os.cpu_count()}")
+        host = {w: time_host_feed(features, w) for w in HOST_WORKERS}
+        log("  host iterator alone (load + alpha + native pad + patchify of 8 scenes): "
+            + ", ".join(f"workers {w}: {t * 1e3:.1f} ms/batch" for w, t in host.items())
+            + "; one scene's parts (median ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in time_host_parts(features).items()))
+        results = {}
+        for name, flags in FEEDS:
+            r = results[name] = run_feed(name, flags, features, tmp)
+            want = 22 * r["steps"]
+            log(f"  feed {name} ({' '.join(flags)}): {r['ms']:.3f} ms/step over steps "
+                f"{FEED_WARM + 1}-{FEED_STEPS} ({r['grids_per_sec']:.3f} grids/s), idle share "
+                f"{r['idle_share']:.4f} over steps {FEED_STEPS + 1}-{r['steps']}, peak "
+                f"{r['peak_gib']:.3f} GiB, H->D {r['h2d_bytes']} bytes/step, launches "
+                f"{r['launches']['block']} + {r['launches']['block_bwd']} "
+                f"({r['launches']['block'] / r['steps']:.0f} + "
+                f"{r['launches']['block_bwd'] / r['steps']:.0f} a step) | {smi}")
+            if (r["launches"]["block"], r["launches"]["block_bwd"]) != (want, want):
+                raise AssertionError(f"feed {name}: launches {r['launches']}, expected {want}")
+        grids = FEED_SCENES * RES ** 3 * 4  # voxels x channels of the corpus
+        log(f"  device corpus: {grids * 4 + FEED_SCENES * 12} bytes in float32, "
+            f"{grids * 2 + FEED_SCENES * 12} with bf16 grids, uploaded once; resident-batch "
+            f"benchmark (phase 7): {bench['step_ms']:.3f} ms/step, {bench['value']:.3f} "
+            f"grids/s, peak {bench['peak_mem_gib']:.3f} GiB")
+        histories = {name: r["losses"] for name, r in results.items()}
+        log("  losses: " + "; ".join(f"{k} {[round(x, 6) for x in v[:FEED_STEPS]]}"
+                                     for k, v in histories.items()))
+        failed = feed_losses_agree(histories)
+        if failed:
+            raise AssertionError("feed losses disagree: " + "; ".join(failed))
+        log(f"  losses of inline, pipeline and device f32 bitwise equal over "
+            f"{len(histories['inline'])} steps; device bf16 within {BF16_FEED_REL}")
+    phase_native()
+    phase_e2e(dev)
+    return results, host
+
+
+def phase_native():
+    """(b) every native function against its numpy version at 160^3."""
+    rs = np.random.RandomState(7)
+    g = rs.rand(RES - 3, RES - 17, RES - 9, 4).astype(np.float32)  # odd sizes below RES
+    cases = {
+        "pad_to_cube": (native.pad_to_cube(g, RES), np.pad(
+            g, [(0, RES - s) for s in g.shape[:3]] + [(0, 0)])),
+        "pad_to_patches": (native.pad_to_patches(g, RES, 4), patchify_np(
+            native.pad_to_cube(g, RES)[None], 4)[0]),
+        "flip_axis 0": (native.flip_axis(g, 0), np.flip(g, 0)),
+        "flip_axis 1": (native.flip_axis(g, 1), np.flip(g, 1)),
+        "rot90_wl": (native.rot90_wl(g), np.flip(np.swapaxes(g, 0, 1), 0)),
+    }
+    for name, (got, want) in cases.items():
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native {name} differs from numpy")
+    t0 = time.perf_counter()
+    got = native.rotate_scale(g, 0.15, 1.05)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = rotate_and_scale_scene(g, None, 0.15, 1.05)[0]
+    numpy_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    log(f"  native vs numpy at {list(g.shape)} -> {RES}^3: pad_to_cube, pad_to_patches, "
+        f"flip_axis 0/1, rot90_wl equal; rotate_scale max abs {err:.3e} (tol "
+        f"{ROTATE_SCALE_ATOL}: float32 against float64 positions), {native_s * 1e3:.1f} ms "
+        f"native, {numpy_s * 1e3:.1f} ms numpy")
+    if err > ROTATE_SCALE_ATOL:
+        raise AssertionError(f"native rotate_scale differs from numpy by {err}")
+
+
+def phase_e2e(dev):
+    """(c) launch/e2e_synthetic_ap_torch.sh's stages in process, cut:
+    --synthetic_hard --device_data --transfer_dtype bfloat16, the MAE traced
+    to --profile_dir; both eval dicts finite, the trace written."""
+    e = E2E
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_dir = os.path.join(tmp, "profile")
+        feed = ["--dataset", "synthetic", "--synthetic_hard", "--device_data",
+                "--transfer_dtype", "bfloat16", "--backbone_type", e["backbone"],
+                "--resolution", str(e["res"]), "--batch_size", "8", "--device", "cuda",
+                "--eval_interval", "100000", "--ckpt_interval", "100000"]
+        t0 = time.perf_counter()
+        mae = run_mae_pretrain.main([
+            "--mode", "train", *feed, "--n_synthetic", str(e["scenes"]), "--steps",
+            str(e["mae_steps"]), "--lr", "1e-4", "--checkpoint_dir", os.path.join(tmp, "mae"),
+            "--log_interval", "2", "--profile_dir", prof_dir])
+        det = ["--n_synthetic", str(e["ft_scenes"]), "--seed", "77", "--steps",
+               str(e["det_steps"]), "--lr", "3e-4", "--log_interval", "10"]
+        run_fcos.main(["--mode", "train", *feed, *det, "--mae_checkpoint",
+                       os.path.join(tmp, "mae"), "--checkpoint_dir", os.path.join(tmp, "fcos_mae")])
+        run_fcos.main(["--mode", "train", *feed, *det,
+                       "--checkpoint_dir", os.path.join(tmp, "fcos_scratch")])
+        evals = {}
+        for kind in ("mae", "scratch"):
+            evals[kind] = run_fcos.main([
+                "--mode", "eval", "--dataset", "synthetic", "--synthetic_hard",
+                "--n_synthetic", str(e["ft_scenes"]), "--n_synthetic_val", str(e["val_scenes"]),
+                "--seed", "77", "--backbone_type", e["backbone"], "--resolution",
+                str(e["res"]), "--batch_size", "8", "--device", "cuda", "--checkpoint",
+                os.path.join(tmp, f"fcos_{kind}")])
+        traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)] if os.path.isdir(
+            prof_dir) else []
+        trace_mb = sum(os.path.getsize(f) for f in traces) / 2**20
+        log(f"  e2e ({e}) in {time.perf_counter() - t0:.1f} s: MAE losses "
+            f"{[round(h['loss'], 4) for h in mae['history'][::5]]}; trace {len(traces)} "
+            f"file(s), {trace_mb:.1f} MiB; eval grafted {evals['mae']}; eval scratch "
+            f"{evals['scratch']}")
+        for kind, out in evals.items():
+            if not out or not all(math.isfinite(v) for v in out.values()):
+                raise AssertionError(f"e2e eval {kind} not finite: {out}")
+        if not traces or trace_mb == 0:
+            raise AssertionError("--profile_dir wrote no trace")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2372,7 +2690,12 @@ def main() -> int:
         rpn_ckpt = phase_rpn(dev, tmp, smi, mae_ckpt)
         phase_rcnn(dev, tmp, smi, rpn_ckpt)
 
-    log(f"[16] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log(f"[16] training feed: run_mae_pretrain at swin_b {RES}^3, batch {TRAIN_BATCH}, from "
+        f"{FEED_SCENES} scenes on disk through four feeds ({', '.join(n for n, _ in FEEDS)}); "
+        "the native collate against numpy; the e2e AP recipe cut for liveness")
+    phase_feed(dev, smi, bench)
+
+    log(f"[17] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

@@ -1,0 +1,68 @@
+#!/bin/bash
+# End-to-end VoxelSR on one CUDA card (the PyTorch port): MAE-pretrain -> graft trunk ->
+# SR-finetune vs identical scratch SR -> eval PSNR on a held-out draw
+# (reference: nerf_rpn/run_voxelSR.py + README.md:179 voxel-SR task).
+# Results land in $OUT/eval_{mae,scratch}.json; PERF.md records them with the card's name and power
+# limit. Mirrors launch/e2e_synthetic_sr.sh, the JAX recipe.
+set -euo pipefail
+cd "$(dirname "$0")/.."
+
+OUT=${OUT:-runs/e2e_synthetic_sr_torch}
+RES=${RES:-64}
+OUT_RES=${OUT_RES:-96}
+BB=${BB:-swin_s}
+N_SCENES=${N_SCENES:-128}
+N_FT=${N_FT:-16}
+N_VAL=${N_VAL:-16}
+MAE_STEPS=${MAE_STEPS:-800}
+SR_STEPS=${SR_STEPS:-400}
+BATCH=${BATCH:-8}
+DEVICE=${DEVICE:-cuda}   # DEVICE=cpu rehearses the recipe at a tiny size
+DEVDATA=${DEVDATA---device_data}   # export DEVDATA= to stream from host instead
+mkdir -p "$OUT"
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader 2>/dev/null || true
+
+echo "=== 1/4: MAE pretrain ($MAE_STEPS steps @ $RES^3) ==="
+python -m nerf_mae_torch.run_mae_pretrain --mode train --device "$DEVICE" --dataset synthetic --transfer_dtype bfloat16 $DEVDATA \
+    --n_synthetic "$N_SCENES" --backbone_type "$BB" --resolution "$RES" \
+    --batch_size "$BATCH" --steps "$MAE_STEPS" --lr 1e-4 \
+    --checkpoint_dir "$OUT/mae" --eval_interval 100000 \
+    --ckpt_interval 100000 --log_interval 50
+
+echo "=== 2/4: VoxelSR finetune from the MAE trunk ==="
+python -m nerf_mae_torch.run_voxel_sr --mode train --device "$DEVICE" --dataset synthetic --transfer_dtype bfloat16 $DEVDATA \
+    --n_synthetic "$N_FT" --seed 77 --backbone_type "$BB" \
+    --resolution "$RES" --out_resolution "$OUT_RES" \
+    --batch_size "$BATCH" --steps "$SR_STEPS" --lr 3e-4 \
+    --mae_checkpoint "$OUT/mae" --checkpoint_dir "$OUT/sr_mae" \
+    --eval_interval 100000 --ckpt_interval 100000 --log_interval 50
+
+echo "=== 3/4: VoxelSR from scratch (same budget) ==="
+python -m nerf_mae_torch.run_voxel_sr --mode train --device "$DEVICE" --dataset synthetic --transfer_dtype bfloat16 $DEVDATA \
+    --n_synthetic "$N_FT" --seed 77 --backbone_type "$BB" \
+    --resolution "$RES" --out_resolution "$OUT_RES" \
+    --batch_size "$BATCH" --steps "$SR_STEPS" --lr 3e-4 \
+    --checkpoint_dir "$OUT/sr_scratch" \
+    --eval_interval 100000 --ckpt_interval 100000 --log_interval 50
+
+echo "=== 4/4: eval PSNR on the held-out draw ==="
+python -m nerf_mae_torch.run_voxel_sr --mode eval --device "$DEVICE" --dataset synthetic \
+    --n_synthetic "$N_FT" --n_synthetic_val "$N_VAL" --seed 77 \
+    --backbone_type "$BB" --resolution "$RES" --out_resolution "$OUT_RES" \
+    --batch_size "$BATCH" --checkpoint "$OUT/sr_mae" \
+    --eval_json "$OUT/eval_mae.json"
+python -m nerf_mae_torch.run_voxel_sr --mode eval --device "$DEVICE" --dataset synthetic \
+    --n_synthetic "$N_FT" --n_synthetic_val "$N_VAL" --seed 77 \
+    --backbone_type "$BB" --resolution "$RES" --out_resolution "$OUT_RES" \
+    --batch_size "$BATCH" --checkpoint "$OUT/sr_scratch" \
+    --eval_json "$OUT/eval_scratch.json"
+
+echo "=== results ==="
+OUT="$OUT" python - <<'EOF'
+import json, os
+out = os.environ.get("OUT", "runs/e2e_synthetic_sr_torch")
+mae = json.load(open(f"{out}/eval_mae.json"))
+scr = json.load(open(f"{out}/eval_scratch.json"))
+for k in sorted(set(mae) & set(scr)):
+    print(f"{k:>20}: mae={mae[k]:.4f} scratch={scr[k]:.4f}")
+EOF

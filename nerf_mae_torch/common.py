@@ -1,24 +1,43 @@
-"""What the downstream task CLIs share (the port's counterpart of
-scripts/common.py): their flags, the scene datasets on disk, the MAE
-weights to graft, checkpoint restore, the benchmark, and the train / eval /
-benchmark loop. Flag names and defaults are scripts/common.py's, for the
-features the port has, plus --device.
+"""What the task CLIs share (the port's counterpart of scripts/common.py):
+their flags, the scene datasets on disk, the training feed, the MAE weights
+to graft, checkpoint restore, the profiler, the benchmark, and the train /
+eval / benchmark loop. Flag names and defaults are scripts/common.py's, for
+the features the port has, plus --device.
+
+The training feed (make_train_batches): by default a host batch iterator
+(scenes assembled on --workers threads with the native collate) behind a
+prefetch thread that keeps --prefetch batches ready and copies each to the
+card while it runs the previous step. The copy (HostToDevice) flattens
+patch-major leaves channel-flat, casts float32 grid leaves to
+--transfer_dtype on the host, fills one of a ring of reused pinned buffers
+and uploads it on a dedicated copy stream; the training stream waits on the
+copy's event. --device_data instead uploads the whole corpus once and
+serves batches as device gathers (data/device_cache.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import time
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
-from nerf_mae_torch.data import SceneDataset, load_split
+from nerf_mae_torch.data import SceneDataset, load_split, prefetch
+from nerf_mae_torch.data.device_cache import (
+    TRANSFER_DTYPES,
+    casts_to,
+    corpus_from_iterator,
+    device_corpus_batches,
+)
 from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_mae_torch.utils import MetricLogger
 
 log = logging.getLogger("nerf_mae_torch")
 
@@ -56,6 +75,30 @@ def add_common_flags(p: argparse.ArgumentParser,
     p.add_argument("--n_synthetic_val", default=0, type=int,
                    help="held-out synthetic eval scenes (0: n_synthetic/4)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_feed_flags(p)
+    return p
+
+
+def add_feed_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The training feed's flags and the run's logging and profiling
+    (scripts/common.py's names and defaults)."""
+    p.add_argument("--workers", default=max((os.cpu_count() or 1) - 1, 0), type=int,
+                   help="batch-assembly threads (0 = inline)")
+    p.add_argument("--prefetch", default=2, type=int,
+                   help="batches kept ready on a background thread, each copied to "
+                        "the card while it runs the previous step (0 = synchronous)")
+    p.add_argument("--transfer_dtype", default="float32", choices=list(TRANSFER_DTYPES),
+                   help="cast float32 grid leaves on the host before the copy (halves "
+                        "host->device bytes; also quantises the MAE's targets)")
+    p.add_argument("--device_data", action="store_true",
+                   help="upload the whole (fixed) training corpus to the card once and "
+                        "serve batches as device gathers (excludes host augments)")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler chrome trace of the benchmark steps "
+                        "(or the first --log_interval train steps) here")
+    p.add_argument("--log_dir", default=None, help="jsonl metric log dir")
+    p.add_argument("--wandb", action="store_true",
+                   help="also log to wandb (when the package can be imported)")
     return p
 
 
@@ -102,16 +145,151 @@ def scene_datasets(args, train_only: Optional[Dict] = None, **targets):
             mk(split.get("val", split.get("test"))))
 
 
+def transfer_leaf(v: np.ndarray, transfer_dtype: Optional[str]) -> torch.dtype:
+    """The dtype a host leaf is copied in: transfer_dtype for float32 grids
+    (ndim >= 4), its own otherwise."""
+    if casts_to(v, transfer_dtype):
+        return TRANSFER_DTYPES[transfer_dtype]
+    return torch.from_numpy(v).dtype
+
+
+class HostToDevice:
+    """The transfer half of the JAX package's shard_batch for one device:
+    a host numpy batch -> tensors on `device`, patch-major leaves flattened
+    channel-flat and float32 grid leaves cast to `transfer_dtype`.
+
+    On a card the cast happens while filling one of a ring of `slots`
+    pinned buffers, reused; the upload runs on a dedicated copy stream and
+    `__call__` returns (batch, event). A slot is refilled only after its
+    previous upload's event has completed. `ready` makes the consuming
+    stream wait on the event and marks the tensors as used by it, so the
+    allocator does not hand their memory to a later upload under a running
+    step. On the CPU the batch is wrapped (cast where asked), event None."""
+
+    def __init__(self, device: torch.device, transfer_dtype: Optional[str] = None,
+                 slots: int = 1):
+        self.device = torch.device(device)
+        self.transfer_dtype = transfer_dtype
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._slots = [({}, None) for _ in range(max(slots, 1))]
+        self._next = 0
+
+    def __call__(self, batch: Dict[str, np.ndarray]):
+        # patch-major [B, T, T, T, p^3, C] leaves travel channel-flat (a view)
+        host = {k: v.reshape(*v.shape[:4], -1) if v.ndim == 6 else v
+                for k, v in batch.items()}
+        if self._stream is None:
+            return {k: torch.from_numpy(v).to(transfer_leaf(v, self.transfer_dtype))
+                    for k, v in host.items()}, None
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        bufs, event = self._slots[i]
+        if event is not None:
+            event.synchronize()  # the slot's previous upload has completed
+        out = {}
+        with torch.cuda.stream(self._stream):
+            for k, v in host.items():
+                dtype = transfer_leaf(v, self.transfer_dtype)
+                buf = bufs.get(k)
+                if buf is None or buf.shape != v.shape or buf.dtype != dtype:
+                    buf = bufs[k] = torch.empty(v.shape, dtype=dtype, pin_memory=True)
+                buf.copy_(torch.from_numpy(v))
+                out[k] = buf.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._slots[i] = (bufs, event)
+        return out, event
+
+    def ready(self, copied) -> Dict[str, torch.Tensor]:
+        """The batch of a __call__, once the current stream may use it."""
+        batch, event = copied
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in batch.values():
+                t.record_stream(stream)
+        return batch
+
+
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host numpy batch -> tensors on `device`; to a card through pinned
-    memory with a non-blocking copy."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(v)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
+    """A host batch on `device`, ready for the current stream (the evals):
+    one HostToDevice transfer, nothing cast."""
+    put = HostToDevice(device)
+    return put.ready(put(batch))
+
+
+def overlap_batches(batches: Iterable[Dict[str, np.ndarray]], device: torch.device,
+                    depth: int, transfer_dtype: Optional[str] = None
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Host batches -> device batches. depth > 0: assembly and upload of
+    batch N+1 run on a prefetch thread while the device runs step N (the
+    reference's DataLoader workers, nerf_mae/run_swin_mae3d.py:578-586);
+    depth 0: inline. The ring holds depth + 1 pinned slots."""
+    put = HostToDevice(device, transfer_dtype, slots=depth + 1)
+    source = prefetch(batches, depth=depth, map_fn=put) if depth > 0 else map(put, batches)
+    try:
+        for copied in source:
+            yield put.ready(copied)
+    finally:
+        if depth > 0:
+            source.close()  # also closes `batches` once its thread has stopped
+        elif hasattr(batches, "close"):
+            batches.close()
+
+
+def make_train_batches(args, device: torch.device,
+                       host_iter_factory: Callable[[], Iterator[Dict[str, np.ndarray]]],
+                       corpus_iter_factory: Optional[Callable[[], Iterator]] = None
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
+    """The training batch stream of a driver (scripts/common.py
+    make_train_batches): the host iterator behind overlap_batches, or under
+    --device_data the corpus (`corpus_iter_factory()`, or the host iterator,
+    drained once: every scene exactly once) uploaded and served as device
+    gathers in the host iterator's epoch order."""
+    if not getattr(args, "device_data", False):
+        return overlap_batches(host_iter_factory(), device, args.prefetch,
+                               transfer_dtype=args.transfer_dtype)
+    aug = [f for f in ("flip_prob", "rotate_prob", "rot_scale_prob")
+           if getattr(args, f, 0.0)]
+    if aug:
+        raise SystemExit(
+            "--device_data caches a fixed corpus once; per-epoch host "
+            "augmentation is incompatible (drop "
+            + ", ".join(f"--{a}" for a in aug) + ")")
+    corpus = corpus_from_iterator((corpus_iter_factory or host_iter_factory)())
+    return device_corpus_batches(corpus, device, args.batch_size, seed=args.seed,
+                                 transfer_dtype=args.transfer_dtype)
+
+
+@contextlib.contextmanager
+def maybe_profile(profile_dir: Optional[str], device: torch.device, name: str = "steps"):
+    """torch.profiler (CPU, and CUDA on a card) around the wrapped steps
+    when profile_dir is set; writes <profile_dir>/<name>_<pid>_<time>.json,
+    a chrome trace (scripts/common.py maybe_profile)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+        _sync(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"{name}_{os.getpid()}_{int(time.time() * 1e3)}.json")
+    prof.export_chrome_trace(path)
+    log.info("trace written to %s", path)
+
+
+def profiled_steps(args, device: torch.device, steps: Iterable[int]) -> Iterator[int]:
+    """The train loop's steps, the first --log_interval of them under
+    maybe_profile(--profile_dir)."""
+    steps = list(steps)
+    with maybe_profile(getattr(args, "profile_dir", None), device, "train"):
+        yield from steps[:args.log_interval]
+    yield from steps[args.log_interval:]
 
 
 def load_mae_params(path: str, mae_cfg: MAEConfig) -> Dict[str, torch.Tensor]:
@@ -156,20 +334,22 @@ def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric
                     summary: Callable[[Dict], Dict] = lambda out: {},
                     reps: int = 20, warmup: int = 3) -> Dict:
     """Times `reps` synchronized calls of step() after `warmup`
-    (scripts/common.py benchmark_step) and prints one JSON line: ms and its
-    std per step, grids/s, peak device memory, the device, and
-    summary(the last call's output). Returns that dict."""
+    (scripts/common.py benchmark_step), under maybe_profile(--profile_dir),
+    and prints one JSON line: ms and its std per step, grids/s, peak device
+    memory, the device, and summary(the last call's output). Returns that
+    dict."""
     for _ in range(warmup):
         step()
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        m = step()
-        _sync(device)
-        times.append(time.perf_counter() - t)
+    with maybe_profile(getattr(args, "profile_dir", None), device, metric):
+        for _ in range(reps):
+            t = time.perf_counter()
+            m = step()
+            _sync(device)
+            times.append(time.perf_counter() - t)
     ms = float(np.mean(times) * 1e3)
     out = {
         "metric": metric,
@@ -197,12 +377,15 @@ def benchmark_eval(args, trainer, state, batch: Dict[str, torch.Tensor], task: s
 
 def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.ndarray]]],
         train_ds, run_eval: Callable, best_key: str, log_keys: Sequence[str],
-        task: str, out_resolution: int, benchmark: Optional[Callable] = None):
+        task: str, out_resolution: int, benchmark: Optional[Callable] = None,
+        corpus_iter: Optional[Callable[[], Iterator[Dict[str, np.ndarray]]]] = None):
     """The CLI's --mode: eval (run_eval's metrics, also to --eval_json),
     benchmark (benchmark_eval's dict, or benchmark(args, trainer, state,
     batch)'s) or train (returns {"steps", "history",
     "checkpoint_dir"}; checkpoints at --ckpt_interval, the best `best_key`
-    eval at --eval_interval, and the last step)."""
+    eval at --eval_interval, and the last step). The training batches are
+    make_train_batches' over batch_iter(train_ds, args), with `corpus_iter`
+    the one-epoch pass that --device_data uploads."""
     device = trainer.device
     if args.mode == "eval":
         out = run_eval(state)
@@ -210,27 +393,41 @@ def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.nd
             with open(args.eval_json, "w") as f:
                 json.dump(out, f)
         return out
-    batches = (to_device(b, device) for b in batch_iter(train_ds, args))
+    batches = make_train_batches(args, device, lambda: batch_iter(train_ds, args),
+                                 corpus_iter)
     if args.mode == "benchmark":
+        batch = next(batches)
+        batches.close()  # no feed work under the timed steps
         if benchmark is not None:
-            return benchmark(args, trainer, state, next(batches))
-        return benchmark_eval(args, trainer, state, next(batches), task, out_resolution)
+            return benchmark(args, trainer, state, batch)
+        return benchmark_eval(args, trainer, state, batch, task, out_resolution)
+    try:
+        return _train(args, trainer, state, batches, run_eval, best_key, log_keys, task)
+    finally:
+        batches.close()
 
+
+def _train(args, trainer, state, batches, run_eval, best_key, log_keys, task):
     history = []
     best = -float("inf")
     total = trainer.total_steps
+    mlog = MetricLogger(args.log_dir, use_wandb=args.wandb,
+                        run_name=f"{task}_{args.backbone_type}", config=vars(args))
     t0 = time.time()
-    for step in range(state.step + 1, total + 1):
+    for step in profiled_steps(args, trainer.device, range(state.step + 1, total + 1)):
         state, metrics = trainer.train_step(state, next(batches))
         if step % args.log_interval == 0:
             m = {k: float(v) for k, v in metrics.items()}
             rate = args.log_interval * args.batch_size / (time.time() - t0)
             log.info("step %d/%d " + " ".join(f"{k} %.5f" for k in log_keys)
                      + " %.2f grids/s", step, total, *(m[k] for k in log_keys), rate)
+            mlog.log(step, {**m, "grids_per_sec": rate})
             history.append({"step": step, **m, "grids_per_sec": rate})
             t0 = time.time()
         if step % args.eval_interval == 0:
             out = run_eval(state)
+            if out:
+                mlog.log(step, {f"val_{k}": v for k, v in out.items()})
             if out.get(best_key, -float("inf")) > best:
                 best = out[best_key]
                 save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
@@ -240,5 +437,6 @@ def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.nd
                             state.optimizer.state_dict())
     save_checkpoint(args.checkpoint_dir, state.step, state.model.state_dict(),
                     state.optimizer.state_dict())
+    mlog.close()
     log.info("done: %d steps", state.step)
     return {"steps": state.step, "history": history, "checkpoint_dir": args.checkpoint_dir}

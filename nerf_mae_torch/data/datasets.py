@@ -1,13 +1,24 @@
-"""Scene data on the host, numpy only (copies of the pieces of
-nerf_mae_tpu/data/datasets.py that the port needs).
+"""Scene data on the host, numpy only (the port's copy of
+nerf_mae_tpu/data/datasets.py).
 
 density_to_alpha / scannet_density_to_alpha (reference:
 nerf_rpn/datasets.py:246-248, :410-414); the scene datasets on disk
 (`load_split`, `SceneDataset`: a features directory of rgbsigma npz files
-plus box, super-resolution or semantic targets) and their augmentations
-(`augment_scene`, `rotate_and_scale_scene`); synthetic_scenes, pad_to_cube
-and mae_batch_iterator, the pretraining feed. The native collate, the
-prefetch pool and the device-resident corpus are not part of the port yet.
+plus box, super-resolution or semantic targets; `GeneralDataset` over a
+csv; `ConcatDataset`; `split_hypersim_dataset`) and their augmentations
+(`augment_scene`, `rotate_and_scale_scene`); the synthetic scenes; and the
+batch iterators of the training feed, `mae_batch_iterator` and
+`detection_batch_iterator`. Those assemble a batch's scenes on a thread
+pool (`workers=`) with the native collate (data/native.py: pad-to-cube and
+the fused pad + patchify).
+
+Augment randomness is drawn in scene order whatever the number of workers:
+a scene is loaded on the pool, its augment parameters are drawn from the
+dataset's generator on the calling thread in the batch's order (the order
+in which the JAX package's serial iterator draws them), and applied on the
+pool. So `workers=N` gives the batches of `workers=0`, which are the JAX
+package's. (Its iterators draw inside the pool's threads, so under
+workers > 0 its draws follow thread scheduling.)
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from nerf_mae_torch.ops.patchify import patchify_np
+from nerf_mae_torch.data import native
+from nerf_mae_torch.data.pipeline import ScenePool
 
 logger = logging.getLogger(__name__)
 
@@ -147,39 +159,64 @@ class SceneDataset:
             ).astype(np.int32)
         return out
 
-    def __getitem__(self, index: int) -> Dict:
+    @property
+    def augmented(self) -> bool:
+        """Whether items are augmented (fresh randomness per visit)."""
+        return self.flip_prob > 0 or self.rotate_prob > 0 or self.rot_scale_prob > 0
+
+    def load_item(self, index: int) -> Dict:
+        """The scene's item before augmentation (a shallow copy)."""
         scene = self.scenes[index]
         item = self._cache.get(scene)
         if item is None:
             item = self._load(scene)
-        item = dict(item)  # shallow copy before augmentation
-        if self.flip_prob > 0 or self.rotate_prob > 0 or self.rot_scale_prob > 0:
-            item = augment_scene(
-                item,
-                self._rng,
-                self.flip_prob,
-                self.rotate_prob,
-                self.rot_scale_prob,
-            )
+        return dict(item)
+
+    def draw_augment(self, item: Dict) -> Tuple:
+        """The next augment parameters for `item` from the dataset's
+        generator (the draws augment_scene makes)."""
+        boxes = item.get("boxes")
+        return draw_augment(self._rng, self.flip_prob, self.rotate_prob,
+                            self.rot_scale_prob,
+                            obb=boxes is not None and boxes.shape[1] == 7)
+
+    @staticmethod
+    def apply_augment(item: Dict, draws: Tuple) -> Dict:
+        return apply_augment(item, draws)
+
+    def __getitem__(self, index: int) -> Dict:
+        item = self.load_item(index)
+        if self.augmented:
+            item = apply_augment(item, self.draw_augment(item))
         return item
 
 
-def augment_scene(
-    item: Dict,
-    rng: np.random.RandomState,
-    flip_prob: float,
-    rotate_prob: float,
-    rot_scale_prob: float,
-) -> Dict:
-    """z-up flips / rot90 / small rotation+scale, channel-last grids.
+def draw_augment(rng: np.random.RandomState, flip_prob: float, rotate_prob: float,
+                 rot_scale_prob: float, obb: bool) -> Tuple:
+    """(rotate, (flip0, flip1), rot_scale: (angle, scale) or None): the
+    draws of augment_scene, in its order; rot+scale is drawn for OBB boxes
+    only."""
+    rotate = rng.rand() < rotate_prob
+    flips = tuple(bool(rng.rand() < flip_prob) for _ in (0, 1))
+    rot_scale = None
+    if obb and rng.rand() < rot_scale_prob:
+        angle = rng.uniform(-np.pi / 18, np.pi / 18)
+        rot_scale = (angle, rng.uniform(0.9, 1.1))
+    return bool(rotate), flips, rot_scale
+
+
+def apply_augment(item: Dict, draws: Tuple) -> Dict:
+    """z-up flips / rot90 / small rotation+scale of draw_augment's draws,
+    channel-last grids.
 
     Box math mirrors the reference's augment_rpn_inputs
     (reference: datasets.py:172-245) on spatial axes (0, 1) of (W, L, H, C).
     """
+    rotate, flips, rot_scale = draws
     g = item["rgbsigma"]
     boxes = item.get("boxes")
 
-    if rng.rand() < rotate_prob:
+    if rotate:
         g = np.flip(np.swapaxes(g, 0, 1), axis=0)
         if boxes is not None:
             boxes = boxes.copy()
@@ -191,7 +228,7 @@ def augment_scene(
                 boxes[:, 0] = g.shape[0] - boxes[:, 0]
 
     for axis in (0, 1):
-        if rng.rand() < flip_prob:
+        if flips[axis]:
             g = np.flip(g, axis=axis)
             if boxes is not None:
                 boxes = boxes.copy()
@@ -203,15 +240,27 @@ def augment_scene(
                     boxes[:, axis] = g.shape[axis] - boxes[:, axis]
                     boxes[:, -1] = -boxes[:, -1]
 
-    if boxes is not None and boxes.shape[1] == 7 and rng.rand() < rot_scale_prob:
-        angle = rng.uniform(-np.pi / 18, np.pi / 18)
-        scale = rng.uniform(0.9, 1.1)
-        g, boxes = rotate_and_scale_scene(np.ascontiguousarray(g), boxes, angle, scale)
+    if rot_scale is not None:
+        g, boxes = rotate_and_scale_scene(np.ascontiguousarray(g), boxes, *rot_scale)
 
     item["rgbsigma"] = np.ascontiguousarray(g)
     if boxes is not None:
         item["boxes"] = boxes
     return item
+
+
+def augment_scene(
+    item: Dict,
+    rng: np.random.RandomState,
+    flip_prob: float,
+    rotate_prob: float,
+    rot_scale_prob: float,
+) -> Dict:
+    """draw_augment from `rng`, then apply_augment."""
+    boxes = item.get("boxes")
+    draws = draw_augment(rng, flip_prob, rotate_prob, rot_scale_prob,
+                         obb=boxes is not None and boxes.shape[1] == 7)
+    return apply_augment(item, draws)
 
 
 def rotate_and_scale_scene(
@@ -366,45 +415,60 @@ def pad_boxes(boxes: np.ndarray, max_gt: int) -> Tuple[np.ndarray, np.ndarray]:
     return out, valid
 
 
+def _fetch(dataset, sel, pool, finish):
+    """[finish(dataset[j]) for j in sel], assembled on `pool` in order. For
+    a dataset with host augments (`augmented`) the scenes are loaded on the
+    pool, their augment parameters drawn here in `sel`'s order and applied
+    on the pool, so the draws do not depend on the number of workers."""
+    if not getattr(dataset, "augmented", False):
+        return pool.map(lambda j: finish(dataset[int(j)]), sel)
+    items = pool.map(lambda j: dataset.load_item(int(j)), sel)
+    draws = [dataset.draw_augment(item) for item in items]
+    return pool.map(lambda a: finish(dataset.apply_augment(*a)), list(zip(items, draws)))
+
+
 def detection_batch_iterator(dataset: Sequence, batch_size: int, resolution: int,
                              max_gt: int = 64, shuffle: bool = True, seed: int = 0,
-                             drop_last: bool = True, loop: bool = True
+                             drop_last: bool = True, loop: bool = True, workers: int = 0
                              ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields {"grids": [B, R, R, R, 4] float32, "sizes": [B, 3] int32,
     "gt_boxes": [B, G, 6|7] float32, "gt_valid": [B, G] bool}, in the JAX
-    iterator's order; scenes are loaded inline."""
+    iterator's order; workers > 0 loads and pads scenes on a thread pool."""
     rng = np.random.RandomState(seed)
     n = len(dataset)
-    while True:
-        order = rng.permutation(n) if shuffle else np.arange(n)
-        for start in range(0, n, batch_size):
-            sel = order[start: start + batch_size]
-            if len(sel) < batch_size and drop_last:
-                continue
-            items = [dataset[int(j)] for j in sel]
-            box_dim = max((i["boxes"].shape[1] for i in items if i.get("boxes") is not None),
-                          default=6)
-            grids = np.zeros((len(sel), resolution, resolution, resolution, 4), np.float32)
-            sizes = np.zeros((len(sel), 3), np.int32)
-            gt = np.zeros((len(sel), max_gt, box_dim), np.float32)
-            gv = np.zeros((len(sel), max_gt), bool)
-            for i, item in enumerate(items):
-                grids[i], sizes[i] = pad_to_cube(item["rgbsigma"], resolution)
-                if item.get("boxes") is not None:
-                    gt[i], gv[i] = pad_boxes(item["boxes"], max_gt)
-            yield {"grids": grids, "sizes": sizes, "gt_boxes": gt, "gt_valid": gv}
-        if not loop:
-            return
+    pool = ScenePool(workers)
+    finish = lambda item: (item, pad_to_cube(item["rgbsigma"], resolution))
+    try:
+        while True:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            for start in range(0, n, batch_size):
+                sel = order[start: start + batch_size]
+                if len(sel) < batch_size and drop_last:
+                    continue
+                pairs = _fetch(dataset, sel, pool, finish)
+                box_dim = max((item["boxes"].shape[1] for item, _ in pairs
+                               if item.get("boxes") is not None), default=6)
+                grids = np.zeros((len(sel), resolution, resolution, resolution, 4),
+                                 np.float32)
+                sizes = np.zeros((len(sel), 3), np.int32)
+                gt = np.zeros((len(sel), max_gt, box_dim), np.float32)
+                gv = np.zeros((len(sel), max_gt), bool)
+                for i, (item, padded) in enumerate(pairs):
+                    grids[i], sizes[i] = padded
+                    if item.get("boxes") is not None:
+                        gt[i], gv[i] = pad_boxes(item["boxes"], max_gt)
+                yield {"grids": grids, "sizes": sizes, "gt_boxes": gt, "gt_valid": gv}
+            if not loop:
+                return
+    finally:
+        pool.close()
 
 
 def pad_to_cube(g: np.ndarray, resolution: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Crop-to-fit + zero-pad a (W, L, H, C) grid to resolution^3; returns
-    (grid, size [3] int32)."""
+    """Crop-to-fit + zero-pad a (W, L, H, C) grid to resolution^3 (the
+    native collate's copy); returns (grid, size [3] int32)."""
     size = np.minimum(np.asarray(g.shape[:3], np.int64), resolution).astype(np.int32)
-    g = g[:resolution, :resolution, :resolution]
-    out = np.zeros((resolution, resolution, resolution, g.shape[3]), np.float32)
-    out[: size[0], : size[1], : size[2]] = g
-    return out, size
+    return native.pad_to_cube(g, resolution), size
 
 
 def mae_batch_iterator(
@@ -415,36 +479,133 @@ def mae_batch_iterator(
     seed: int = 0,
     drop_last: bool = True,
     loop: bool = True,
+    workers: int = 0,
     patch_major: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields {"grids": [B, R, R, R, 4] float32, "sizes": [B, 3] int32}
     forever (or one epoch if loop=False), in the JAX iterator's order.
     `dataset[i]["rgbsigma"]` is a channel-last grid. patch_major=p emits
-    grids in the patch-major layout [B, t, t, t, p^3, 4] (t = R // p)."""
+    grids in the patch-major layout [B, t, t, t, p^3, 4] (t = R // p) from
+    the native fused pad + patchify. workers > 0 assembles the scenes on a
+    thread pool."""
     rng = np.random.RandomState(seed)
     n = len(dataset)
+    pool = ScenePool(workers)
     if patch_major:
         t = resolution // patch_major
         grid_shape = (t, t, t, patch_major ** 3, 4)
+
+        def finish(item):
+            g = item["rgbsigma"]
+            size = np.minimum(g.shape[:3], resolution).astype(np.int32)
+            return native.pad_to_patches(g, resolution, patch_major), size
     else:
         grid_shape = (resolution, resolution, resolution, 4)
+        finish = lambda item: pad_to_cube(item["rgbsigma"], resolution)
 
-    def load(j):
-        g, size = pad_to_cube(dataset[int(j)]["rgbsigma"], resolution)
-        if patch_major:
-            g = patchify_np(g[None], patch_major)[0]
-        return g, size
+    try:
+        while True:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            for start in range(0, n, batch_size):
+                sel = order[start: start + batch_size]
+                if len(sel) < batch_size and drop_last:
+                    continue
+                grids = np.zeros((len(sel),) + grid_shape, np.float32)
+                sizes = np.zeros((len(sel), 3), np.int32)
+                for i, (g, size) in enumerate(_fetch(dataset, sel, pool, finish)):
+                    grids[i], sizes[i] = g, size
+                yield {"grids": grids, "sizes": sizes}
+            if not loop:
+                return
+    finally:
+        pool.close()
 
-    while True:
-        order = rng.permutation(n) if shuffle else np.arange(n)
-        for start in range(0, n, batch_size):
-            sel = order[start: start + batch_size]
-            if len(sel) < batch_size and drop_last:
-                continue
-            grids = np.zeros((len(sel),) + grid_shape, np.float32)
-            sizes = np.zeros((len(sel), 3), np.int32)
-            for i, j in enumerate(sel):
-                grids[i], sizes[i] = load(j)
-            yield {"grids": grids, "sizes": sizes}
-        if not loop:
-            return
+
+class GeneralDataset:
+    """CSV-driven dataset: columns scene,rgbsigma_path,boxes_path
+    (reference: datasets.py:417-451 GeneralRPNDataset)."""
+
+    def __init__(self, csv_path: str, normalize_density: bool = True):
+        import csv
+
+        with open(csv_path) as f:
+            self.rows = list(csv.DictReader(f))
+        self.normalize_density = normalize_density
+        self.scenes = [r["scene"] for r in self.rows]
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, index: int) -> Dict:
+        row = self.rows[index]
+        out = {
+            "scene": row["scene"],
+            "rgbsigma": _load_rgbsigma(row["rgbsigma_path"], self.normalize_density,
+                                       density_to_alpha),
+        }
+        bp = row.get("boxes_path")
+        if bp and bp != "None":
+            out["boxes"] = np.load(bp).astype(np.float32)
+        return out
+
+
+class ConcatDataset:
+    """Concatenation of scene datasets for multi-dataset pretraining (the
+    reference trains on Front3D + HM3D + Hypersim jointly,
+    README.md:254-258); augmented members keep their serial draws."""
+
+    def __init__(self, *datasets):
+        self.datasets = [d for d in datasets if d is not None and len(d) > 0]
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def _locate(self, index: int) -> Tuple[int, int]:
+        d = int(np.searchsorted(self._offsets, index, side="right") - 1)
+        return d, index - int(self._offsets[d])
+
+    def __getitem__(self, index):
+        d, j = self._locate(index)
+        return self.datasets[d][j]
+
+    @property
+    def augmented(self) -> bool:
+        return any(getattr(d, "augmented", False) for d in self.datasets)
+
+    def load_item(self, index: int):
+        d, j = self._locate(index)
+        sub = self.datasets[d]
+        return d, (sub.load_item(j) if getattr(sub, "augmented", False) else sub[j])
+
+    def draw_augment(self, located):
+        d, item = located
+        sub = self.datasets[d]
+        return sub.draw_augment(item) if getattr(sub, "augmented", False) else None
+
+    def apply_augment(self, located, draws):
+        d, item = located
+        return item if draws is None else self.datasets[d].apply_augment(item, draws)
+
+
+def split_hypersim_dataset(
+    scenes: Sequence[str],
+    train_ratio: float,
+    val_ratio: float,
+    output_path: str,
+    seed: Optional[int] = None,
+) -> str:
+    """Shuffle scenes into train/val/test splits and write
+    hypersim_split.npz (reference: nerf_rpn/datasets.py:453-476, with an
+    explicit seed). Returns the npz path."""
+    if train_ratio + val_ratio > 1.0:
+        raise ValueError("train_ratio + val_ratio must be <= 1.0")
+    shuffled = list(scenes)
+    np.random.RandomState(seed).shuffle(shuffled)
+    n_train = int(len(shuffled) * train_ratio)
+    n_val = int(len(shuffled) * (train_ratio + val_ratio))
+    out = os.path.join(output_path, "hypersim_split.npz")
+    np.savez(out, train_scenes=np.array(shuffled[:n_train]),
+             val_scenes=np.array(shuffled[n_train:n_val]),
+             test_scenes=np.array(shuffled[n_val:]))
+    return out

@@ -107,7 +107,14 @@ def build_datasets(args):
 
 def batch_iter(ds, args):
     return detection_batch_iterator(ds, args.batch_size, args.resolution, max_gt=args.max_gt,
-                                    seed=args.seed)
+                                    seed=args.seed, workers=args.workers)
+
+
+def corpus_iter(ds, args):
+    """One pass over every scene, the corpus --device_data uploads."""
+    return detection_batch_iterator(ds, args.batch_size, args.resolution, max_gt=args.max_gt,
+                                    shuffle=False, loop=False, drop_last=False,
+                                    workers=args.workers)
 
 
 def benchmark(args, trainer, state, batch):
@@ -180,7 +187,8 @@ def main(argv=None):
     return run(args, trainer, state, batch_iter, train_ds, run_eval, best_key="ap50",
                log_keys=("loss", "loss_cls", "loss_reg", "loss_centerness", "num_pos",
                          "grad_norm"),
-               task="fcos", out_resolution=args.resolution, benchmark=benchmark)
+               task="fcos", out_resolution=args.resolution, benchmark=benchmark,
+               corpus_iter=lambda: corpus_iter(train_ds, args))
 
 
 if __name__ == "__main__":

@@ -5,16 +5,25 @@ the same flag names where the port has the feature; --mode
     python -m nerf_mae_torch.run_mae_pretrain --mode train --dataset synthetic \
         --backbone_type swin_b --resolution 160 --batch_size 8 --steps 100
 
---dataset synthetic draws scenes from a seed; front3d, hypersim and scannet
-read a features directory of rgbsigma npz files (--features_path, split by
---dataset_split, the training set augmented by --flip_prob / --rotate_prob
-and cut by --percent_train). Batches are built on the host (numpy,
-patch-major by default) and copied to the card from pinned memory with
-non_blocking. --mode benchmark times 20 synchronized train steps after
-one warm-up step on one batch and prints one JSON line (metric, grids/s,
-step_ms, MFU against the H100's dense bf16 peak, peak memory, device); a
-batch that fails to run (out of memory, say) is not retried at a smaller
-size.
+--dataset synthetic draws scenes from a seed (--synthetic_hard: the grids of
+the hard detection scenes, so that the e2e recipe pretrains on what FCOS
+finetunes on); front3d, hypersim and scannet read a features directory of
+rgbsigma npz files (--features_path, split by --dataset_split, the training
+set augmented by --flip_prob / --rotate_prob and cut by --percent_train).
+
+The feed (common.make_train_batches): --workers threads assemble each batch
+with the native collate (patch-major by default), a prefetch thread keeps
+--prefetch batches ready and copies each to the card from a ring of reused
+pinned buffers on a copy stream while the card runs the previous step, and
+--transfer_dtype casts the grids on the host (which also quantises the
+reconstruction targets, as in JAX). --device_data uploads the corpus once
+and serves batches as device gathers, in the same order. --mode benchmark
+times 20 synchronized train steps after one warm-up step on one batch
+(under torch.profiler with --profile_dir) and prints one JSON line
+(metric, grids/s, step_ms, MFU against the H100's dense bf16 peak, peak
+memory, device); a batch that fails to run (out of memory, say) is not
+retried at a smaller size. --log_dir writes the metrics as jsonl (and
+--wandb forwards them where wandb can be imported).
 """
 
 from __future__ import annotations
@@ -28,9 +37,21 @@ import time
 import numpy as np
 import torch
 
-from nerf_mae_torch.common import ListDataset, scene_datasets, to_device
+from nerf_mae_torch.common import (
+    ListDataset,
+    add_feed_flags,
+    make_train_batches,
+    maybe_profile,
+    profiled_steps,
+    scene_datasets,
+    to_device,
+)
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
-from nerf_mae_torch.data import mae_batch_iterator, synthetic_scenes
+from nerf_mae_torch.data import (
+    mae_batch_iterator,
+    synthetic_detection_scenes,
+    synthetic_scenes,
+)
 from nerf_mae_torch.flops import train_mfu
 from nerf_mae_torch.inference import resolve_device
 from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -79,8 +100,11 @@ def parse_args(argv=None):
                    help="the host patchifies batches so the patch embed runs "
                         "as one dense matmul; --no-patch_major_input feeds the "
                         "voxel grid to the convolution path")
-    p.add_argument("--log_dir", default=None, help="jsonl metric log dir")
+    p.add_argument("--synthetic_hard", action="store_true",
+                   help="the harder synthetic distribution (matches run_fcos "
+                        "--synthetic_hard for e2e pretrain->finetune)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_feed_flags(p)
     return p.parse_args(argv)
 
 
@@ -92,9 +116,14 @@ def build_datasets(args):
         return scene_datasets(args, train_only=dict(
             flip_prob=args.flip_prob, rotate_prob=args.rotate_prob,
             percent_train=args.percent_train))
+    if args.synthetic_hard:
+        # the hard distribution the detector finetunes on (grids only)
+        draw = lambda n, seed: [s["rgbsigma"] for s in synthetic_detection_scenes(
+            n, args.resolution, seed, hard=True)]
+    else:
+        draw = lambda n, seed: synthetic_scenes(n, args.resolution, seed)
     n_val = args.n_synthetic_val or max(args.n_synthetic // 4, 2)
-    mk = lambda n, seed: ListDataset(
-        [{"rgbsigma": g} for g in synthetic_scenes(n, args.resolution, seed)])
+    mk = lambda n, seed: ListDataset([{"rgbsigma": g} for g in draw(n, seed)])
     return mk(args.n_synthetic, args.seed), mk(n_val, args.seed + 10_000)
 
 
@@ -143,8 +172,6 @@ def main(argv=None):
         log.info("restored step %d from %s", restored["step"], args.checkpoint)
 
     pm = mae_cfg.swin.patch_size[0] if args.patch_major_input else 0
-    batches = (to_device(b, device) for b in mae_batch_iterator(
-        train_ds, args.batch_size, args.resolution, seed=args.seed, patch_major=pm))
 
     def run_eval(state):
         it = mae_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
@@ -163,15 +190,32 @@ def main(argv=None):
                 json.dump(agg, f)
         return agg
 
+    batches = make_train_batches(
+        args, device,
+        lambda: mae_batch_iterator(train_ds, args.batch_size, args.resolution, seed=args.seed,
+                                   workers=args.workers, patch_major=pm),
+        corpus_iter_factory=lambda: mae_batch_iterator(
+            train_ds, args.batch_size, args.resolution, shuffle=False, loop=False,
+            drop_last=False, workers=args.workers, patch_major=pm))
     if args.mode == "benchmark":
-        return benchmark(args, trainer, state, next(batches), mae_cfg, device)
+        batch = next(batches)
+        batches.close()  # no feed work under the timed steps
+        return benchmark(args, trainer, state, batch, mae_cfg, device)
+    try:
+        return train(args, trainer, state, batches, run_eval, val_ds, total_steps,
+                     train_cfg.keep_checkpoints, device)
+    finally:
+        batches.close()
 
-    mlog = MetricLogger(args.log_dir, run_name=f"mae_{args.backbone_type}")
+
+def train(args, trainer, state, batches, run_eval, val_ds, total_steps, keep, device):
+    """The train loop: log, eval and keep the best-PSNR checkpoint, save."""
+    mlog = MetricLogger(args.log_dir, use_wandb=args.wandb,
+                        run_name=f"mae_{args.backbone_type}", config=vars(args))
     history = []
     best_psnr = -1.0
-    keep = train_cfg.keep_checkpoints
     t0 = time.time()
-    for step in range(state.step + 1, total_steps + 1):
+    for step in profiled_steps(args, device, range(state.step + 1, total_steps + 1)):
         state, metrics = trainer.train_step(state, next(batches))
         if step % args.log_interval == 0:
             m = {k: float(v) for k, v in metrics.items()}
@@ -209,17 +253,19 @@ def _sync(device):
 
 
 def benchmark(args, trainer, state, batch, mae_cfg, device):
-    """One warm-up step, then 20 synchronized steps on `batch`."""
+    """One warm-up step, then 20 synchronized steps on `batch` (traced to
+    --profile_dir when set)."""
     state, _ = trainer.train_step(state, batch)
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
-    for _ in range(20):
-        t = time.perf_counter()
-        state, m = trainer.train_step(state, batch)
-        _sync(device)
-        times.append(time.perf_counter() - t)
+    with maybe_profile(args.profile_dir, device, "mae_train_step"):
+        for _ in range(20):
+            t = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            _sync(device)
+            times.append(time.perf_counter() - t)
     step_ms = float(np.mean(times) * 1e3)
     grids_per_sec = args.batch_size / (step_ms / 1e3)
     slug = device_slug(device)

@@ -97,7 +97,14 @@ def build_datasets(args):
 
 def batch_iter(ds, args):
     return detection_batch_iterator(ds, args.batch_size, args.resolution, max_gt=args.max_gt,
-                                    seed=args.seed)
+                                    seed=args.seed, workers=args.workers)
+
+
+def corpus_iter(ds, args):
+    """One pass over every scene, the corpus --device_data uploads."""
+    return detection_batch_iterator(ds, args.batch_size, args.resolution, max_gt=args.max_gt,
+                                    shuffle=False, loop=False, drop_last=False,
+                                    workers=args.workers)
 
 
 def benchmark(args, trainer, state, batch):
@@ -148,7 +155,8 @@ def main(argv=None):
 
     return run(args, trainer, state, batch_iter, train_ds, run_eval, best_key="recall50_top2500",
                log_keys=("loss", "loss_objectness", "loss_reg", "num_pos", "grad_norm"),
-               task="rpn", out_resolution=args.resolution, benchmark=benchmark)
+               task="rpn", out_resolution=args.resolution, benchmark=benchmark,
+               corpus_iter=lambda: corpus_iter(train_ds, args))
 
 
 if __name__ == "__main__":

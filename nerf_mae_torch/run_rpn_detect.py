@@ -13,7 +13,9 @@ overall after). Its head is built with the number of 3^3 convs the
 checkpoint holds, and every other parameter must match. The body runs once
 a step, under no_grad, for both the proposals and the RoI features. The
 RCNN stage (RoI sampling, aligned pooling, classification and refinement)
-trains on them with AdamW + OneCycle + the clip; eval reports recall, AR
+trains on them with AdamW + OneCycle + the clip, fed through
+common.overlap_batches (--workers, --prefetch, --transfer_dtype; no
+--device_data, as in JAX); eval reports recall, AR
 and AP25/50/75 of its refined boxes at 300 (eval/detection.py), from
 --checkpoint when given. --roi_path is parsed and unused, as in
 scripts/run_rpn_detect.py.
@@ -32,6 +34,8 @@ import torch
 from nerf_mae_torch.common import (
     ListDataset,
     add_common_flags,
+    overlap_batches,
+    profiled_steps,
     scene_datasets,
     setup_logging,
     to_device,
@@ -45,6 +49,7 @@ from nerf_mae_torch.models.rcnn import RCNNConfig
 from nerf_mae_torch.models.rpn import RPNConfig
 from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from nerf_mae_torch.train.rpn_trainer import RCNNTrainer, RPNTrainer
+from nerf_mae_torch.utils import MetricLogger
 
 log = logging.getLogger("nerf_mae_torch.run_rpn_detect")
 
@@ -68,6 +73,9 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     if args.mode == "benchmark":
         p.error("--mode benchmark: scripts/run_rpn_detect.py has none (train or eval)")
+    if args.device_data:
+        p.error("--device_data: the RCNN stage streams its batches from the host "
+                "(scripts/run_rpn_detect.py feeds through overlap_batches only)")
     return args
 
 
@@ -156,25 +164,34 @@ def main(argv=None):
                 json.dump(agg, f)
         return agg
 
-    batches = (to_device(b, device) for b in detection_batch_iterator(
-        train_ds, args.batch_size, args.resolution, max_gt=args.max_gt, seed=args.seed))
+    batches = overlap_batches(
+        detection_batch_iterator(train_ds, args.batch_size, args.resolution,
+                                 max_gt=args.max_gt, seed=args.seed, workers=args.workers),
+        device, args.prefetch, transfer_dtype=args.transfer_dtype)
+    mlog = MetricLogger(args.log_dir, use_wandb=args.wandb,
+                        run_name=f"rcnn_{args.backbone_type}", config=vars(args))
     history = []
     t0 = time.time()
-    for step in range(state.step + 1, total_steps + 1):
-        batch = next(batches)
-        feats, det = features_and_proposals(rpn_state, batch)
-        state, metrics = trainer.train_step(state, feats, det, batch)
-        if step % args.log_interval == 0:
-            m = {k: float(v) for k, v in metrics.items()}
-            rate = args.log_interval * args.batch_size / (time.time() - t0)
-            log.info("step %d/%d loss %.4f (cls %.4f reg %.4f) pos %d %.2f grids/s", step,
-                     total_steps, m["loss"], m["loss_cls"], m["loss_reg"], int(m["num_pos"]),
-                     rate)
-            history.append({"step": step, **m, "grids_per_sec": rate})
-            t0 = time.time()
-        if step % args.ckpt_interval == 0 or step == total_steps:
-            save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
-                            state.optimizer.state_dict())
+    try:
+        for step in profiled_steps(args, device, range(state.step + 1, total_steps + 1)):
+            batch = next(batches)
+            feats, det = features_and_proposals(rpn_state, batch)
+            state, metrics = trainer.train_step(state, feats, det, batch)
+            if step % args.log_interval == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                rate = args.log_interval * args.batch_size / (time.time() - t0)
+                log.info("step %d/%d loss %.4f (cls %.4f reg %.4f) pos %d %.2f grids/s",
+                         step, total_steps, m["loss"], m["loss_cls"], m["loss_reg"],
+                         int(m["num_pos"]), rate)
+                mlog.log(step, {**m, "grids_per_sec": rate})
+                history.append({"step": step, **m, "grids_per_sec": rate})
+                t0 = time.time()
+            if step % args.ckpt_interval == 0 or step == total_steps:
+                save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
+                                state.optimizer.state_dict())
+    finally:
+        batches.close()
+        mlog.close()
     log.info("done: %d steps", state.step)
     return {"steps": state.step, "history": history, "checkpoint_dir": args.checkpoint_dir}
 

@@ -149,9 +149,13 @@ def main(argv=None):
         log.info("eval: %s", out)
         return out
 
+    # the corpus pass at batch size 1, so that --device_data holds every
+    # scene (batch_iter drops ragged tails)
+    one = argparse.Namespace(**{**vars(args), "batch_size": 1})
     return run(args, trainer, state, batch_iter, train_ds, run_eval, best_key="mIoU",
                log_keys=("loss", "soft_miou", "grad_norm"), task="voxel_semantics",
-               out_resolution=args.resolution)
+               out_resolution=args.resolution,
+               corpus_iter=lambda: batch_iter(train_ds, one, shuffle=False, loop=False))
 
 
 if __name__ == "__main__":

@@ -106,9 +106,13 @@ def main(argv=None):
         log.info("eval: %s", out)
         return out
 
+    # the corpus pass at batch size 1, so that --device_data holds every
+    # scene (batch_iter drops ragged tails)
+    one = argparse.Namespace(**{**vars(args), "batch_size": 1})
     return run(args, trainer, state, batch_iter, train_ds, run_eval, best_key="psnr",
                log_keys=("loss", "psnr", "grad_norm"), task="voxel_sr",
-               out_resolution=args.out_resolution)
+               out_resolution=args.out_resolution,
+               corpus_iter=lambda: batch_iter(train_ds, one, shuffle=False, loop=False))
 
 
 if __name__ == "__main__":

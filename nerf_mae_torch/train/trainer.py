@@ -12,8 +12,10 @@ what an uninterrupted run draws.
     state, metrics = trainer.train_step(state, batch)
     metrics = trainer.eval_step(state, batch)
 
-`batch` is {"grids": [B, R, R, R, 4] (or the patch-major [B, T, T, T, p^3, 4]),
-"sizes": [B, 3]} as tensors on the trainer's device.
+`batch` is {"grids": [B, R, R, R, 4] (or the patch-major [B, T, T, T, p^3, 4],
+or its channel-flat [B, T, T, T, p^3*4], the feed's layout; float32 or the
+feed's bf16 / float16), "sizes": [B, 3]} as tensors on the trainer's
+device.
 """
 
 from __future__ import annotations

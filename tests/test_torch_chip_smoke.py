@@ -1,8 +1,10 @@
 """CPU tests of chip_smoke.py's host-side helpers: the ptxas summary of the
 kernel build, the work / bound arithmetic behind the kernels line,
 phase 14's FCOS tower work count, NMS flip counter, clustered NMS
-candidates, host scan and parameter groups, and phase 15's RPN and RCNN
-work counts, configurations and pairwise IoU."""
+candidates, host scan and parameter groups, phase 15's RPN and RCNN
+work counts, configurations and pairwise IoU, and phase 16's feed
+helpers: the bytes a step of each feed, the loss agreement of the feeds,
+the scenes on disk and the e2e stages' flags."""
 
 import chip_smoke
 import numpy as np
@@ -202,3 +204,59 @@ def test_pair_iou_of_aabbs_and_obbs():
     obb = torch.cat([(aabb[:, :3] + aabb[:, 3:]) / 2, aabb[:, 3:] - aabb[:, :3],
                      torch.full((5, 1), 0.3)], 1)
     assert torch.equal(chip_smoke.pair_iou(obb, 0, 2), iou_3d(obb[0], obb[2]))
+
+
+def test_feed_bytes_per_step():
+    """Host feeds copy the grids (float32 or bf16) and the int32 sizes each
+    step; device feeds copy only the int64 index vector."""
+    grid = 8 * 160 ** 3 * 4
+    assert chip_smoke.feed_bytes_per_step("inline", 8, 160) == grid * 4 + 96 == 524_288_096
+    assert chip_smoke.feed_bytes_per_step("pipeline", 8, 160) == 524_288_096
+    assert chip_smoke.feed_bytes_per_step("host bf16", 8, 160) == grid * 2 + 96
+    assert chip_smoke.feed_bytes_per_step("device f32", 8, 160) == 64
+    assert chip_smoke.feed_bytes_per_step("device bf16", 8, 160) == 64
+    names = [n for n, _ in chip_smoke.FEEDS]
+    assert names == ["inline", "pipeline", "device f32", "device bf16"]
+    flags = dict(chip_smoke.FEEDS)
+    assert flags["inline"] == ("--prefetch", "0", "--workers", "0")
+    assert flags["pipeline"] == ("--prefetch", "2", "--workers", "8")
+    assert "--transfer_dtype" not in flags["device f32"]
+    assert flags["device bf16"][-2:] == ("--transfer_dtype", "bfloat16")
+
+
+def test_feed_losses_agree_on_crafted_histories():
+    base = [5.25, 4.5, 4.0000001]
+    ok = {"inline": base, "pipeline": list(base), "device f32": list(base),
+          "device bf16": [5.3, 4.49, 4.01]}
+    assert chip_smoke.feed_losses_agree(ok) == []
+    one_ulp = float(np.nextafter(np.float32(base[2]), np.float32(5)))
+    bad = dict(ok, pipeline=[5.25, 4.5, one_ulp])
+    assert chip_smoke.feed_losses_agree(bad) == ["pipeline differs from inline"]
+    bad = dict(ok, **{"device f32": base[:2]})
+    assert chip_smoke.feed_losses_agree(bad) == ["device f32 differs from inline"]
+    far = chip_smoke.feed_losses_agree(dict(ok, **{"device bf16": [5.25, 4.5, 4.2]}))
+    assert len(far) == 1 and "device bf16 differs from inline by 5.000e-02" in far[0]
+    nan = chip_smoke.feed_losses_agree(dict(ok, **{"device bf16": [5.25, float("nan"), 4.0]}))
+    assert len(nan) == 1 and "not finite" in nan[0]
+
+
+def test_feed_scenes_on_disk(tmp_path):
+    root = chip_smoke.write_feed_scenes(str(tmp_path / "f"), seed=160, n=3, lo=8)
+    files = sorted(p.name for p in (tmp_path / "f").iterdir())
+    assert files == ["scene00.npz", "scene01.npz", "scene02.npz"]
+    for name in files:
+        with np.load(f"{root}/{name}") as f:
+            shape = f["rgbsigma"].shape
+        assert shape[3] == 4 and all(s % 2 == 1 and 15 <= s <= 159 for s in shape[:3])
+
+
+def test_e2e_stages_cut_the_recipe_of_the_launch_file():
+    with open("launch/e2e_synthetic_ap_torch.sh") as f:
+        recipe = f.read()
+    for flag in ("--synthetic_hard", "--device_data", "--transfer_dtype bfloat16",
+                 "python -m nerf_mae_torch.run_mae_pretrain", "python -m nerf_mae_torch.run_fcos",
+                 "--seed 77", "--lr 3e-4", "--lr 1e-4"):
+        assert flag in recipe
+    e = chip_smoke.E2E
+    assert (e["res"], e["backbone"], e["scenes"], e["val_scenes"]) == (96, "swin_s", 32, 8)
+    assert (e["mae_steps"], e["det_steps"]) == (60, 40)
