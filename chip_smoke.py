@@ -13,8 +13,9 @@ Phases (any failure raises and the exit code is not 0):
      every (stage, shift) of the swin_b 160^3 forward (batch 1, 2 and 8, bf16)
      and one float32 case, with errors, tolerances and CUDA-event times
      beside the bound;
-  4. the main path: three inference requests through
-     nerf_mae_torch.inference.main at swin_b 160^3 (2 scenes each, random
+  4. the main path: two inference requests through
+     nerf_mae_torch.inference.main at swin_b 160^3 (1 scene of 49-79 voxels
+     a side each, padded to 160^3; the first also saves the features; random
      weights from a seed), with the fused-block launches counted, then a
      per-part time breakdown of one forward and a comparison of the whole
      reconstruction with the plain composition;
@@ -97,29 +98,47 @@ Phases (any failure raises and the exit code is not 0):
      RoI align, head forward, loss + backward, clip + AdamW) with their peak
      memory;
  16. the training feed: `run_mae_pretrain.main` trains swin_b 160^3 at
-     batch 8 for 15 steps from 16 scenes on disk (uncompressed npz, odd
+     batch 8 for 11 steps from 16 scenes on disk (uncompressed npz, odd
      sizes up to 159^3) through four feeds: inline (--prefetch 0 --workers
      0), the pipeline (--prefetch 2 --workers 8, native collate), and
      --device_data with float32 and with bf16 transfer; for each, the
-     wall-clock ms/step over steps 5-12 (a synchronize at each end),
+     wall-clock ms/step over steps 3-8 (a synchronize at each end),
      grids/s, the device's idle share under torch.profiler over steps
-     13-15, peak memory, host-to-device bytes a step and 22 + 22 fused-block
+     9-11, peak memory, host-to-device bytes a step and 22 + 22 fused-block
      launches a step, beside the resident-batch benchmark of phase 7 and
      the host iterator alone at 0, 4 and 8 workers; the losses of steps
-     1-15 of inline, pipeline and device float32 bitwise equal, bf16 within
+     1-11 of inline, pipeline and device float32 bitwise equal, bf16 within
      2e-2 of inline; every native collate function against numpy at 160^3
      (rotate_scale to 1.5e-4: float32 against float64 positions); then
      launch/e2e_synthetic_ap_torch.sh's stages in process, cut (swin_s
      96^3, 32 hard scenes, MAE 60 steps traced to --profile_dir, FCOS 40
      steps grafted and 40 from scratch, eval on 8 scenes): both eval dicts
      finite, a trace written;
- 17. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 17. L0 data production: a room of 4 boxes seen from 96 orbit views
+     (scripts/save_transforms.py, then views of 640x480 rendered on the card
+     from an analytic stand-in field with the port's render_rays, PNG with
+     16-bit depth); `nerf_mae_torch.run_nerf.main --task train_extract
+     --ngp_frame` at the JAX defaults (8x256, 4096 rays, 64 + 64 samples,
+     lr 5e-4, max_res 160), --steps cut to 400: the loss falls, the
+     hierarchical step's median ms, rays/s, samples/s, TFLOP/s against the
+     float32 bound, host ms/step, idle share and peak memory, the extraction
+     ms over the 96 views; preprocess_boxes --format obb on the grid and the
+     density's centroid on each box; a depth-guided run (--depth_guided
+     --depth_loss_weight 0.1 --cam_embed_dim 16, the depth maps) with the
+     same numbers; one hierarchical step and a small extraction on the card
+     against the CPU (same weights, rays and draws, float32); then
+     `run_fcos.main` trains swin_s 160^3 at batch 1 for 2 steps on the
+     extracted grid and its boxes (finite losses, positives, 22 + 22
+     fused-block launches a step);
+ 18. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
+Every phase header prints the seconds since the start.
 Without a CUDA card it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -135,7 +154,7 @@ import time
 import numpy as np
 import torch
 
-from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain, run_rpn,
+from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain, run_nerf, run_rpn,
                             run_rpn_detect, run_voxel_semantics, run_voxel_sr)
 from nerf_mae_torch.common import load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
@@ -196,7 +215,9 @@ from nerf_mae_torch.train.rpn_trainer import RCNNTrainer, RPNTrainer
 # limit printed beside every number.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+REPO = os.path.dirname(os.path.abspath(__file__))
 RES = 160
+SERVE_REQUESTS = 2  # phase 4; each writes a 160^3 prediction as PLY (~20 s on the host)
 # The 22 fused blocks of one swin_b forward, by (stage, shifted): launches
 # per forward. Every one of these cases is measured in phase 3.
 LAUNCHES_PER_FORWARD = {(0, False): 1, (0, True): 1, (1, False): 1, (1, True): 1,
@@ -216,7 +237,14 @@ SR_OUT = (256, 384)  # the reference's two output grids (train at the first)
 NUM_CLASSES = 19
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase header ("[n] ...") also gets the seconds since
+    the script started."""
+    if msg.startswith("["):
+        msg += f" (at {time.perf_counter() - _T0:.0f} s)"
     print(msg, flush=True)
 
 
@@ -437,17 +465,17 @@ def phase_kernels(dev):
 
 
 def write_scenes(root: str, seed: int):
-    """2 synthetic scenes of odd sizes below 160, from a numpy seed: rgb in
-    [0, 1] and raw density (alpha after density_to_alpha ~half occupied)."""
+    """A synthetic scene of odd sizes 49-79 a side, from a numpy seed: rgb
+    in [0, 1] and raw density (alpha after density_to_alpha ~half
+    occupied)."""
     rs = np.random.RandomState(seed)
     os.makedirs(root)
-    for i in range(2):
-        size = tuple(int(s) for s in rs.randint(48, 80, size=3) * 2 + 1)
-        grid = np.empty(size + (4,), np.float32)
-        grid[..., :3] = rs.rand(*size, 3)
-        grid[..., 3] = rs.randn(*size) * 3
-        np.savez(os.path.join(root, f"scene{i}.npz"), rgbsigma=grid,
-                 bbox_min=np.zeros(3, np.float32), resolution=np.array(size))
+    size = tuple(int(s) for s in rs.randint(24, 40, size=3) * 2 + 1)
+    grid = np.empty(size + (4,), np.float32)
+    grid[..., :3] = rs.rand(*size, 3)
+    grid[..., 3] = rs.randn(*size) * 3
+    np.savez(os.path.join(root, "scene0.npz"), rgbsigma=grid,
+             bbox_min=np.zeros(3, np.float32), resolution=np.array(size))
     return root
 
 
@@ -496,13 +524,14 @@ def forward_breakdown(model, grids, token_mask):
 
 
 def phase_main_path(dev, tmp):
-    """Three requests through inference.main at swin_b 160^3."""
+    """SERVE_REQUESTS requests through inference.main at swin_b 160^3, the
+    first with --save_features."""
     per_scene = 22  # fused blocks per forward and per encode
     fused_swin_block.launches = 0
     fused_window_attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
     request_ms = []
-    for r in range(3):
+    for r in range(SERVE_REQUESTS):
         scene_dir = write_scenes(os.path.join(tmp, f"request{r}"), seed=100 + r)
         save_features = r == 0
         before = fused_swin_block.launches
@@ -2312,8 +2341,8 @@ def phase_rcnn(dev, tmp, smi, rpn_ckpt):
 # The training feed (phase 16): run_mae_pretrain at swin_b 160^3, batch 8,
 # fed from scenes on disk through four feeds
 FEED_SCENES = 16
-FEED_WARM = 4  # steps before the timed window (steps 5-12 are timed)
-FEED_STEPS = 12  # steps whose losses are compared across the feeds
+FEED_WARM = 2  # steps before the timed window (steps 3-8 are timed)
+FEED_STEPS = 8  # steps whose losses are compared across the feeds
 FEED_PROFILE = 3  # steps after those, under torch.profiler (idle share)
 FEEDS = (
     ("inline", ("--prefetch", "0", "--workers", "0")),
@@ -2443,7 +2472,7 @@ def run_feed(name, flags, features, tmp):
     }
 
 
-def time_host_feed(features, workers, batches=2):
+def time_host_feed(features, workers, batches=1):
     """Seconds a batch of the host iterator alone takes (disk scenes,
     patch-major, batch 8) with `workers` threads."""
     ds = SceneDataset(features)
@@ -2597,6 +2626,437 @@ def phase_e2e(dev):
             raise AssertionError("--profile_dir wrote no trace")
 
 
+# L0 data production (phase 17): a NeRF trained per scene through run_nerf at
+# the JAX defaults (8x256 MLP, 4096 rays, 64 + 64 samples, lr 5e-4, max_res
+# 160), only --steps cut, on 96 views of 640x480 of a room of 4 boxes; the
+# extracted grid handed to a swin_s FCOS step
+L0_VIEWS = 96
+L0_HW = (480, 640)
+L0_RAYS, L0_SAMPLES, L0_IMPORTANCE, L0_RES = 4096, 64, 64, 160  # the JAX defaults
+L0_FOV = 70.0
+L0_STEPS = 400  # JAX's default is 20,000
+L0_WARM = 20  # steps before the timed window
+L0_TIMED = 360  # steps L0_WARM + 1 .. L0_WARM + L0_TIMED are timed
+L0_PROFILE = 3  # steps after those, under torch.profiler (idle share)
+L0_DG_STEPS = 60  # the depth-guided run (--task train)
+L0_DG_WARM, L0_DG_TIMED = 10, 40
+L0_CAM_DIM = 16
+L0_CPU_RAYS = 256  # the card-vs-CPU step's rays (the CPU runs the same 8x256 step)
+L0_CPU_VIEWS = 8  # views of the card-vs-CPU extraction
+L0_CPU_RES = 16  # its max_res
+L0_F32_FACTOR = 2.0  # the card's loss and gradients no further from float64 than 2x the CPU's
+L0_EXTRACT_TOL = dict(rtol=1e-4, atol=1e-4)
+L0_OBJECTS = (  # (position, extents) in raw world coordinates, z up
+    ((9.0, -3.8, 0.8), (1.6, 1.6, 1.4)),
+    ((12.0, -2.2, 0.7), (1.4, 1.4, 1.2)),
+    ((10.0, -1.2, 0.6), (1.2, 1.0, 1.0)),
+    ((11.6, -4.8, 0.9), (1.0, 1.3, 1.6)),
+)
+L0_COLORS = ((4.0, -4.0, -4.0), (-4.0, -4.0, 4.0), (-4.0, 4.0, -4.0), (4.0, 4.0, -4.0))
+
+
+def nerf_point_macs(depth=8, width=256, skip_at=4, pos_freqs=10, dir_freqs=4, cam_dim=0):
+    """Multiply-accumulates of one NeRFMLP forward at one point (591,488 at
+    the defaults): the trunk, the density and feature heads, the colour
+    head."""
+    enc = 6 * pos_freqs
+    d_in, macs = enc, 0
+    for i in range(depth):
+        macs += d_in * width
+        d_in = width + enc if i == skip_at else width
+    macs += d_in * (1 + width)
+    return macs + (width + 6 * dir_freqs + cam_dim) * (width // 2) + (width // 2) * 3
+
+
+def nerf_step_flops(rays, samples_per_ray, cam_dim=0):
+    """A train step's FLOPs: every sample's forward (2 per MAC) and backward
+    (twice the forward)."""
+    return 3 * 2 * rays * samples_per_ray * nerf_point_macs(cam_dim=cam_dim)
+
+
+def nerf_extract_flops(points, views, width=256):
+    """The port's extraction: the trunk and color_fc's feature columns once a
+    point, the per-view bias add, ReLU, rgb layer and sigmoid once a (point,
+    view)."""
+    trunk = nerf_point_macs() - (width + 24) * (width // 2) - (width // 2) * 3
+    per_point = 2 * (trunk + width * (width // 2))
+    per_view = 2 * (width // 2) * 3 + 2 * (width // 2) + 3 * 4
+    return points * (per_point + views * per_view)
+
+
+def look_at(eye, target, up=(0, 0, 1)):
+    eye = np.asarray(eye, np.float64)
+    f = eye - np.asarray(target, np.float64)
+    f /= np.linalg.norm(f)
+    r = np.cross(np.asarray(up, np.float64), f)
+    r /= np.linalg.norm(r)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = r, np.cross(f, r), f, eye
+    return c2w
+
+
+def write_l0_scene(root, seed, views=L0_VIEWS, hw=L0_HW, dev="cuda"):
+    """A scene as L0 users hold it: raw poses on two orbits around the
+    objects and an HM3D box json, made into transforms.json by
+    scripts/save_transforms.py (a subprocess: numpy only), then views
+    rendered with the port's render_rays on `dev` from an analytic stand-in
+    field (a solid coloured sphere in each carried box), written as 8-bit
+    RGB PNGs with 16-bit millimetre depth maps (0 where the ray hits
+    nothing). Returns (transforms dict, near, far)."""
+    from nerf_mae_torch.nerf.images import write_png
+    from nerf_mae_torch.nerf.render import get_rays, render_rays
+
+    rs = np.random.RandomState(seed)
+    pos = np.array([p for p, _ in L0_OBJECTS])
+    mid = pos.mean(0)
+    ang = np.linspace(0, 2 * np.pi, views, endpoint=False)
+    height = np.where(np.arange(views) % 2, 1.5, 2.6) + 0.1 * rs.randn(views)
+    eyes = np.stack([mid[0] + 4.4 * np.cos(ang), mid[1] + 4.4 * np.sin(ang), height], 1)
+    os.makedirs(os.path.join(root, "poses"))
+    for i, e in enumerate(eyes):
+        with open(os.path.join(root, "poses", f"{i:03d}.json"), "w") as f:
+            json.dump({"pose": look_at(e, mid).tolist()}, f)
+    items = []
+    for p, ext in L0_OBJECTS:  # the HM3D json is y-up
+        lo, hi = np.asarray(p) - np.asarray(ext) / 2, np.asarray(p) + np.asarray(ext) / 2
+        items.append({"class_name": "chair", "bbox": [lo[[0, 2, 1]].tolist(),
+                                                      hi[[0, 2, 1]].tolist()]})
+    boxes_json = os.path.join(root, "boxes.json")
+    with open(boxes_json, "w") as f:
+        json.dump(items, f)
+    h, w = hw
+    tpath = os.path.join(root, "transforms.json")
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts", "save_transforms.py"),
+                    "--input_dir", root, "--boxes_json", boxes_json, "--output", tpath,
+                    "--swap_yz", "--width", str(w), "--height", str(h), "--fov_x", str(L0_FOV)],
+                   check=True, capture_output=True, timeout=300)
+    with open(tpath) as f:
+        tj = json.load(f)
+    if len(tj["bounding_boxes"]) != len(L0_OBJECTS) or "room_bbox" not in tj:
+        raise AssertionError(f"save_transforms carried {len(tj['bounding_boxes'])} boxes")
+
+    blobs = [(torch.tensor(b["position"], dtype=torch.float32, device=dev),
+              0.75 * min(b["extents"])) for b in tj["bounding_boxes"]]
+    colors = [torch.tensor(c, device=dev) for c in L0_COLORS]
+
+    def field(_params, pts, _vd):
+        sigma = torch.zeros(pts.shape[:-1], device=dev)
+        rgb = torch.zeros(pts.shape[:-1] + (3,), device=dev)
+        for (c, r), col in zip(blobs, colors):
+            inside = torch.linalg.norm(pts - c, dim=-1) < r
+            sigma = torch.where(inside, 60.0, sigma)
+            rgb = torch.where(inside[..., None], col, rgb)
+        return rgb, sigma
+
+    focal = 0.5 * w / np.tan(0.5 * tj["camera_angle_x"])
+    poses = np.asarray([fr["transform_matrix"] for fr in tj["frames"]], np.float32)
+    cam_d = np.linalg.norm(poses[:, :3, 3] - np.asarray(tj["bounding_boxes"][0]["position"]), axis=1)
+    # tight [near, far] (tests/test_l0_pipeline.py: a loose far thins the
+    # samples on the objects until the NeRF collapses to the empty scene)
+    near, far = 0.05, float(cam_d.max() * 1.8)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "depth"))
+    spread = []
+    for fr, p in zip(tj["frames"], poses):
+        o, d = get_rays(torch.from_numpy(p).to(dev), h, w, focal)
+        with torch.no_grad():
+            out = render_rays(None, field, o.reshape(-1, 3), d.reshape(-1, 3), near, far, 64)
+        img = out["rgb"].reshape(h, w, 3).cpu().numpy()
+        spread.append(float(img.std()))
+        name = os.path.basename(fr["file_path"])
+        write_png(os.path.join(root, fr["file_path"]), (img * 255).astype(np.uint8))
+        depth_mm = torch.where(out["acc"] > 0.5, out["depth"] * 1000.0, 0.0)
+        write_png(os.path.join(root, "depth", name),
+                  depth_mm.reshape(h, w).round().clamp(0, 65535).cpu().numpy().astype(np.uint16))
+    if min(spread) < 0.05:
+        raise AssertionError(f"objects not visible in some views (std {min(spread):.4f})")
+    return tj, near, far
+
+
+class NeRFRecorder:
+    """Stands in for run_nerf's NeRFTrainer during one run: every step's
+    loss (a device scalar, read after the run), CUDA events around every
+    train step, the host clock from a synchronize before step warm + 1 to
+    one after step warm + timed, torch.profiler over the L0_PROFILE steps
+    after those, and the peak memory at the last step."""
+
+    def __init__(self, base, warm, timed, steps):
+        self.base, self.warm, self.timed, self.steps = base, warm, timed, steps
+        self.losses, self.events, self.t0, self.t1, self.prof, self.peak = [], [], 0, 0, None, 0
+
+    def trainer(self, *args, **kw):
+        rec = self
+        from torch.profiler import ProfilerActivity, profile
+
+        class Recorded(self.base):
+            def train_step(self, *a, **k):
+                step = len(rec.losses) + 1
+                if step in (rec.warm + 1, rec.warm + rec.timed + 1):
+                    torch.cuda.synchronize()
+                    if step == rec.warm + 1:
+                        rec.t0 = time.perf_counter()
+                    else:
+                        rec.t1 = time.perf_counter()
+                        rec.prof = profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA])
+                        rec.prof.start()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = super().train_step(*a, **k)
+                end.record()
+                rec.events.append((start, end))
+                rec.losses.append(out[2])
+                if step == rec.warm + rec.timed + L0_PROFILE:
+                    torch.cuda.synchronize()
+                    rec.prof.stop()
+                if step == rec.steps:
+                    torch.cuda.synchronize()
+                    rec.peak = torch.cuda.max_memory_allocated() / 2**30
+                return out
+
+        return Recorded(*args, **kw)
+
+    def summary(self, flops):
+        """Median event ms of the timed steps, host ms/step over them, the
+        idle share under the profiler, and the rates of `flops` a step."""
+        ms = [s.elapsed_time(e) for s, e in self.events[self.warm:self.warm + self.timed]]
+        med = statistics.median(ms)
+        rows, busy_ms, span_ms = profile_summary(self.prof)
+        top = ", ".join(f"{name[:48]} {t / L0_PROFILE:.2f} ms ({100 * t / busy_ms:.0f}%)"
+                        for t, _, name in rows[:6]) if busy_ms else "no device time"
+        return {"median_ms": med, "host_ms": (self.t1 - self.t0) * 1e3 / self.timed,
+                "idle_share": 1 - busy_ms / span_ms if span_ms else float("nan"),
+                "tflops": flops / med / 1e9, "peak_gib": self.peak,
+                "losses": [float(x) for x in self.losses], "top": top,
+                "launches": sum(c for _, c, _ in rows) / L0_PROFILE}
+
+
+def run_nerf_recorded(argv, warm, timed, steps):
+    """run_nerf.main(argv) with its trainer recorded and its extraction
+    timed (a synchronize at each end)."""
+    original, extract = run_nerf.NeRFTrainer, run_nerf.extract_rgbsigma_grid
+    rec = NeRFRecorder(original, warm, timed, steps)
+    timing = {}
+
+    def timed_extract(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = extract(*a, **k)
+        torch.cuda.synchronize()
+        timing["extract_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    run_nerf.NeRFTrainer, run_nerf.extract_rgbsigma_grid = rec.trainer, timed_extract
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        result = run_nerf.main(argv)
+    finally:
+        run_nerf.NeRFTrainer, run_nerf.extract_rgbsigma_grid = original, extract
+    return result, rec, timing
+
+
+def density_on_boxes(grid, vboxes, scale):
+    """tests/test_l0_pipeline.py's centroid check with its voxel distances
+    times `scale` (its grid is 16): per box, the occupied voxels (relu(sigma)
+    above half its max) near the box have their centroid within 2.5 *
+    scale voxels of the box centre on every axis. Returns each box's
+    largest axis distance."""
+    sig = np.maximum(grid[..., 3], 0.0)
+    if sig.max() <= 0:
+        raise AssertionError("the NeRF reconstructed no positive density")
+    occ = np.stack(np.nonzero(sig > sig.max() * 0.5), axis=1) + 0.5
+    dist = []
+    for i, b in enumerate(vboxes):
+        d = np.linalg.norm(occ - b[:3], axis=1)
+        near = occ[d < max(3.0 * scale, 0.75 * b[3:6].max())]
+        if not len(near):
+            raise AssertionError(f"no density near voxel box {i}")
+        dist.append(float(np.abs(near.mean(0) - b[:3]).max()))
+    if max(dist) > 2.5 * scale:
+        raise AssertionError(f"voxel boxes off the density centroids: {dist}")
+    return dist
+
+
+def nerf_step_against_cpu(dev, state, images, poses, focal, near, far, scene_scale):
+    """One hierarchical train step (8x256, 64 + 64 samples) from the trained
+    weights `state`, with the same rays and draws, on the card (float32) and
+    on the CPU (float32, and float64 as the reference). The loss and the
+    gradients (Adam's first moments, 0.1 x them) are sensitive to rounding:
+    the 1e10 last-sample delta makes alpha steep in a density near 0, and
+    the loss is a sum of small residuals, so float32 on the CPU is itself
+    measurably off float64 (the run prints both distances). So the card's
+    loss and moments must be no further from float64 than L0_F32_FACTOR x
+    the CPU float32's (relative; floor 1e-6), and the updated parameters within 2
+    lr of the CPU's (an Adam step moves an entry by at most lr, and a
+    near-zero gradient may flip its sign). Returns {name: (card, CPU)}
+    distances from float64, and the params' max abs difference."""
+    from nerf_mae_torch.nerf.train import NeRFTrainer
+
+    kw = dict(near=near, far=far, n_samples=L0_SAMPLES, n_importance=L0_IMPORTANCE, lr=5e-4,
+              ray_batch=L0_CPU_RAYS, scene_scale=scene_scale)
+    cpu = NeRFTrainer(**kw, device="cpu")
+    rays = cpu.upload_rays(images[:2], poses[:2], focal)
+    sel = np.random.RandomState(5).randint(0, 2 * images.shape[1] * images.shape[2], L0_CPU_RAYS)
+    batch = cpu.batch(rays, sel, images.shape[1] * images.shape[2])
+    gen = torch.Generator().manual_seed(6)
+    u = (torch.rand(L0_CPU_RAYS, L0_SAMPLES, generator=gen),
+         torch.rand(L0_CPU_RAYS, L0_IMPORTANCE, generator=gen))
+    out = {}
+    for name, d, dtype in (("f64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+                           ("card", dev, torch.float32)):
+        tr = NeRFTrainer(**kw, device=d)
+        params, _ = tr.init(0, n_views=2)
+        params.load_state_dict(state)
+        params = params.to(dtype)
+        opt = torch.optim.Adam(params.parameters(), lr=tr.lr, betas=(0.9, 0.999), eps=1e-8)
+        cast = lambda x: x.to(tr.device, dtype if x.is_floating_point() else x.dtype)
+        params, opt, loss, _ = tr.train_step(params, opt, *map(cast, batch),
+                                             u=tuple(map(cast, u)))
+        out[name] = (float(loss), {n: p.detach().cpu().double() for n, p in params.named_parameters()},
+                     {n: opt.state[p]["exp_avg"].cpu().double()
+                      for n, p in params.named_parameters()})
+    (l64, _, mr), (lc, pc, mc), (lg, pg, mg) = out["f64"], out["cpu"], out["card"]
+    dist = lambda m: max(float((m[n] - mr[n]).norm() / mr[n].norm().clamp_min(1e-30)) for n in mr)
+    d = {"loss": (abs(lg - l64) / abs(l64), abs(lc - l64) / abs(l64)),
+         "moments": (dist(mg), dist(mc))}
+    param_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+    far = [k for k, (card, cpu_) in d.items() if card > L0_F32_FACTOR * cpu_ + 1e-6]
+    if far or param_err > 2 * 5e-4:
+        raise AssertionError(f"NeRF step card vs CPU: distances from float64 (card, CPU) {d}, "
+                             f"params {param_err:.3e}")
+    return d, param_err
+
+
+def phase_l0(dev, smi):
+    """L0 data production: scene -> run_nerf (train + extract at the JAX
+    defaults) -> the grid on the boxes -> the depth-guided step -> card
+    against CPU -> preprocess_boxes -> two swin_s FCOS steps on the grid."""
+    from nerf_mae_torch.nerf.extract import extract_rgbsigma_grid
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene = os.path.join(tmp, "scene0")
+        tj, near, far = write_l0_scene(scene, seed=17, dev=dev)
+        log(f"  scene: {L0_VIEWS} views of {L0_HW[1]}x{L0_HW[0]} rendered on the card and "
+            f"written as PNG with 16-bit depth in {time.perf_counter() - t0:.1f} s; "
+            f"{len(L0_OBJECTS)} boxes, near {near} far {far:.4f}, room_bbox {tj['room_bbox']}")
+        feat, boxes = os.path.join(tmp, "features"), os.path.join(tmp, "boxes")
+        flags = ["--scene_dir", scene, "--near", str(near), "--far", str(far),
+                 "--ray_batch", str(L0_RAYS), "--n_samples", str(L0_SAMPLES), "--n_importance",
+                 str(L0_IMPORTANCE), "--max_res", str(L0_RES), "--device", "cuda", "--seed", "0"]
+        t0 = time.perf_counter()
+        result, rec, timing = run_nerf_recorded(
+            ["--task", "train_extract", "--ngp_frame", "--scene_id", "scene0", "--extract_dir",
+             feat, "--steps", str(L0_STEPS), *flags], L0_WARM, L0_TIMED, L0_STEPS)
+        run_s = time.perf_counter() - t0
+        samples = L0_RAYS * (L0_SAMPLES + L0_SAMPLES + L0_IMPORTANCE)
+        flops = nerf_step_flops(L0_RAYS, L0_SAMPLES + L0_SAMPLES + L0_IMPORTANCE)
+        bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        s = rec.summary(flops)
+        losses = s["losses"]
+        first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+        log(f"  run_nerf --task train_extract ({L0_STEPS} steps, 8x256, {L0_RAYS} rays, "
+            f"{L0_SAMPLES} + {L0_IMPORTANCE} samples) in {run_s:.1f} s: loss {first:.5f} (steps 1-10) -> {last:.5f} (steps "
+            f"{L0_STEPS - 9}-{L0_STEPS}), final PSNR {result['psnr']:.2f}")
+        log(f"  hierarchical step: median {s['median_ms']:.3f} ms (CUDA events, steps "
+            f"{L0_WARM + 1}-{L0_WARM + L0_TIMED}), host {s['host_ms']:.3f} ms/step, "
+            f"{L0_RAYS / s['median_ms'] * 1e3:.0f} rays/s, {samples / s['median_ms'] * 1e3:.4g} "
+            f"samples/s, {s['tflops']:.2f} TFLOP/s float32 ({flops / 1e12:.3f} TFLOP a step); "
+            f"bound {bound_ms:.3f} ms (operations, 67 TFLOP/s), {100 * bound_ms / s['median_ms']:.1f}% "
+            f"of it; idle share {s['idle_share']:.4f} (steps {L0_WARM + L0_TIMED + 1}-"
+            f"{L0_WARM + L0_TIMED + L0_PROFILE}); peak {s['peak_gib']:.3f} GiB | {smi}")
+        log(f"  its device time by kernel a step ({s['launches']:.0f} launches): {s['top']}")
+        if not all(math.isfinite(x) for x in losses) or not last < first:
+            raise AssertionError(f"NeRF loss did not fall: {first} -> {last}")
+        npz = np.load(result["npz"])
+        grid = npz["rgbsigma"]
+        res = [int(r) for r in npz["resolution"]]
+        ext_points = int(np.prod(res))
+        ext_flops = nerf_extract_flops(ext_points, L0_VIEWS)
+        log(f"  extraction at max_res {L0_RES}: grid {list(grid.shape)}, {timing['extract_ms']:.1f} ms "
+            f"over {L0_VIEWS} views ({ext_flops / timing['extract_ms'] / 1e9:.2f} TFLOP/s; bound "
+            f"{ext_flops / PEAK_FLOPS[torch.float32] * 1e3:.3f} ms; evaluating the whole MLP at "
+            f"every (point, view) would be "
+            f"{ext_points * L0_VIEWS * 2 * nerf_point_macs() / 1e12:.2f} TFLOP) | {smi}")
+        if list(grid.shape[:3]) != res or max(res) != L0_RES or not np.isfinite(grid).all():
+            raise AssertionError(f"extracted grid {grid.shape}, resolution {res}")
+
+        os.makedirs(boxes)
+        subprocess.run([sys.executable, os.path.join(REPO, "scripts", "preprocess_boxes.py"),
+                        "--annotations", os.path.join(scene, "transforms.json"), "--features_npz",
+                        result["npz"], "--output", os.path.join(boxes, "scene0.npy"),
+                        "--format", "obb"], check=True, capture_output=True, timeout=300)
+        vboxes = np.load(os.path.join(boxes, "scene0.npy"))
+        dist = density_on_boxes(grid, vboxes, scale=L0_RES / 16)
+        log(f"  preprocess_boxes --format obb: {vboxes.shape[0]} voxel boxes; density centroid "
+            f"to box centre, largest axis (voxels): {[round(x, 2) for x in dist]} (tol "
+            f"{2.5 * L0_RES / 16})")
+
+        images, poses, focal, depths, valid = run_nerf.load_scene(
+            scene, "transforms.json", 1, depth_dir=os.path.join(scene, "depth"))
+        scene_scale = float(np.abs(np.asarray(tj["room_bbox"], np.float32)).max())
+        dg, dg_rec, _ = run_nerf_recorded(
+            ["--task", "train", "--depth_guided", "--depth_loss_weight", "0.1",
+             "--cam_embed_dim", str(L0_CAM_DIM), "--depth_dir", os.path.join(scene, "depth"),
+             "--ngp_frame", "--steps", str(L0_DG_STEPS), *flags], L0_DG_WARM, L0_DG_TIMED,
+            L0_DG_STEPS)
+        dg_flops = nerf_step_flops(L0_RAYS, L0_SAMPLES, cam_dim=L0_CAM_DIM)
+        d = dg_rec.summary(dg_flops)
+        dg_bound = dg_flops / PEAK_FLOPS[torch.float32] * 1e3
+        log(f"  depth-guided step (--depth_guided --depth_loss_weight 0.1 --cam_embed_dim "
+            f"{L0_CAM_DIM}, {100 * valid.mean():.1f}% of the pixels with depth; {L0_RAYS} rays, "
+            f"{L0_SAMPLES // 2} + {L0_SAMPLES // 2} samples): median {d['median_ms']:.3f} ms, host "
+            f"{d['host_ms']:.3f} ms/step, {L0_RAYS / d['median_ms'] * 1e3:.0f} rays/s, "
+            f"{L0_RAYS * L0_SAMPLES / d['median_ms'] * 1e3:.4g} "
+            f"samples/s, {d['tflops']:.2f} TFLOP/s; bound {dg_bound:.3f} ms; idle share "
+            f"{d['idle_share']:.4f}; peak {d['peak_gib']:.3f} GiB; loss {d['losses'][0]:.4f} -> "
+            f"{d['losses'][-1]:.4f} | {smi}")
+        log(f"  its device time by kernel a step ({d['launches']:.0f} launches): {d['top']}")
+        if not all(math.isfinite(x) for x in d["losses"]):
+            raise AssertionError("depth-guided losses not finite")
+        del dg
+
+        trained = {k: v.detach().cpu() for k, v in result["params"].state_dict().items()}
+        dists, param_err = nerf_step_against_cpu(dev, trained, images, poses, focal, near,
+                                                 far, scene_scale)
+        fine = result["trainer"].fine_params(result["params"])
+        bmin, bmax = (np.asarray(b, np.float32) for b in tj["room_bbox"])
+        card = extract_rgbsigma_grid(fine, bmin, bmax, poses[:L0_CPU_VIEWS], L0_CPU_RES,
+                                     scene_scale=scene_scale)
+        cpu = extract_rgbsigma_grid(copy.deepcopy(fine).cpu(), bmin, bmax, poses[:L0_CPU_VIEWS],
+                                    L0_CPU_RES, scene_scale=scene_scale)
+        ext_err = float(np.abs(card["rgbsigma"] - cpu["rgbsigma"]).max())
+        np.testing.assert_allclose(card["rgbsigma"], cpu["rgbsigma"], **L0_EXTRACT_TOL)
+        log(f"  card vs CPU, float32: one hierarchical step from the trained weights "
+            f"({L0_CPU_RAYS} rays, same rays and draws), distance from the CPU float64 step "
+            f"(card, CPU float32): loss rel {dists['loss'][0]:.3e}, {dists['loss'][1]:.3e}; Adam "
+            f"moments (relative L2, worst tensor) {dists['moments'][0]:.3e}, "
+            f"{dists['moments'][1]:.3e} (tol: card <= {L0_F32_FACTOR} x CPU + 1e-6); updated "
+            f"params max abs {param_err:.3e} (tol 2 lr = 1e-3); extraction at max_res {L0_CPU_RES} over "
+            f"{L0_CPU_VIEWS} views max abs {ext_err:.3e} (tol {L0_EXTRACT_TOL})")
+        del result, fine
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        out = run_fcos.main(["--mode", "train", "--dataset", "front3d", "--features_path", feat,
+                             "--boxes_path", boxes, "--backbone_type", "swin_s", "--resolution",
+                             str(RES), "--batch_size", "1", "--steps", "2", "--device", "cuda",
+                             *FCOS_FLAGS, "--checkpoint_dir", os.path.join(tmp, "fcos"),
+                             "--log_interval", "1", "--eval_interval", "1000000",
+                             "--ckpt_interval", "1000000"])
+        launches = read_launches()
+        hist = out["history"]
+        log(f"  run_fcos on the extracted grid (swin_s {RES}^3, batch 1, 2 steps): losses "
+            f"{[round(h['loss'], 5) for h in hist]}, num_pos {[int(h['num_pos']) for h in hist]}, "
+            f"launches {launches['block']} + {launches['block_bwd']}")
+        if (launches["block"], launches["block_bwd"]) != (44, 44):
+            raise AssertionError(f"FCOS on the extracted grid: launches {launches}")
+        if len(hist) != 2 or not all(math.isfinite(h["loss"]) and h["num_pos"] > 0
+                                     for h in hist):
+            raise AssertionError(f"FCOS on the extracted grid: {hist}")
+    return s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2620,7 +3080,7 @@ def main() -> int:
     by_batch = phase_kernels(dev)
     summary = by_batch[1]
 
-    log("[4] main path: 3 inference requests at swin_b 160^3 (tanh GELU)")
+    log(f"[4] main path: {SERVE_REQUESTS} inference requests at swin_b 160^3 (tanh GELU)")
     with tempfile.TemporaryDirectory() as tmp:
         launches, request_ms = phase_main_path(dev, tmp)
     model, grids, token_mask, tanh_launches, rel = compare_with_plain("tanh", dev)
@@ -2695,7 +3155,12 @@ def main() -> int:
         "the native collate against numpy; the e2e AP recipe cut for liveness")
     phase_feed(dev, smi, bench)
 
-    log(f"[17] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log(f"[17] L0 data production: run_nerf train_extract at the JAX defaults ({L0_STEPS} "
+        f"steps) on {L0_VIEWS} views of {L0_HW[1]}x{L0_HW[0]}, the grid on the boxes, the "
+        "depth-guided step, card against CPU, 2 swin_s FCOS steps on the extracted grid")
+    phase_l0(dev, smi)
+
+    log(f"[18] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

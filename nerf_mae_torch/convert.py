@@ -14,7 +14,8 @@ plus the subpixel head, which has no reference name and keeps its own
 same way (`base/...` as the MAE, `encoder1/conv*`, `decoder1/...`,
 `voxel_out/conv`, `sem_out/conv`), and `det_params_from_jax`,
 `rpn_params_from_jax` and `rcnn_params_from_jax` the FCOS detector, the
-anchor RPN and the RCNN stage. `adamw_state_from_jax` carries an optax
+anchor RPN and the RCNN stage, and `nerf_params_from_jax` a per-scene
+NeRF's {coarse, fine, cam}. `adamw_state_from_jax` carries an optax
 adamw state (the moments are trees
 shaped like the parameters, so they map the same way) into the port's
 torch.optim.AdamW.
@@ -263,6 +264,27 @@ def rcnn_params_from_jax(tree_or_flat: Mapping, cfg, in_channels: int = 256
 
     want = set(RCNNStage(cfg, in_channels, device="meta").state_dict().keys())
     return _convert(tree_or_flat, _map_rcnn_key, want)
+
+
+def _map_nerf_key(path: str) -> Tuple[str, Optional[Callable]]:
+    """A NeRFTrainer leaf: {coarse, fine}/<Dense>/{kernel, bias} (kernel
+    [in, out] -> weight [out, in]) or the latent table `cam`."""
+    if path == "cam":
+        return "cam", None
+    m = re.fullmatch(r"(coarse|fine)/(fc\d+|sigma|feat|color_fc|rgb)/(kernel|bias)", path)
+    if not m:
+        raise KeyError(path)
+    if m.group(3) == "bias":
+        return f"{m.group(1)}.{m.group(2)}.bias", None
+    return f"{m.group(1)}.{m.group(2)}.weight", _lin
+
+
+def nerf_params_from_jax(tree_or_flat: Mapping, params) -> Dict[str, torch.Tensor]:
+    """A JAX NeRFTrainer's params {coarse, fine?, cam?} (nested or
+    "/"-flat, as numpy) -> the state dict of the port's NeRFParams
+    `params` (CPU float32 tensors). Raises on a missing or unknown
+    parameter."""
+    return _convert(tree_or_flat, _map_nerf_key, set(params.state_dict().keys()))
 
 
 def _check_keys(sd: Mapping, want: set) -> None:

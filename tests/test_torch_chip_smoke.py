@@ -4,10 +4,12 @@ phase 14's FCOS tower work count, NMS flip counter, clustered NMS
 candidates, host scan and parameter groups, phase 15's RPN and RCNN
 work counts, configurations and pairwise IoU, and phase 16's feed
 helpers: the bytes a step of each feed, the loss agreement of the feeds,
-the scenes on disk and the e2e stages' flags."""
+the scenes on disk and the e2e stages' flags, and phase 17's NeRF work
+counts and the check that the extracted density sits on the boxes."""
 
 import chip_smoke
 import numpy as np
+import pytest
 import torch
 
 from nerf_mae_torch import kernels, run_rpn, run_rpn_detect
@@ -260,3 +262,38 @@ def test_e2e_stages_cut_the_recipe_of_the_launch_file():
     e = chip_smoke.E2E
     assert (e["res"], e["backbone"], e["scenes"], e["val_scenes"]) == (96, "swin_s", 32, 8)
     assert (e["mae_steps"], e["det_steps"]) == (60, 40)
+
+
+def test_nerf_work_counts_and_the_step_bound():
+    """Phase 17's work: 591,488 MACs a point of the 8x256 NeRF (the fc
+    layers 60x256, 4x 256x256, 316x256, 2x 256x256; sigma and feat 256 ->
+    1 + 256; color 280 -> 128; rgb 128 -> 3), a hierarchical step of 4096
+    x (64 + 128) points 2.79 TFLOP, 41.7 ms at the float32 peak."""
+    assert chip_smoke.nerf_point_macs() == 591488
+    assert chip_smoke.nerf_point_macs(cam_dim=16) == 591488 + 16 * 128
+    tiny = chip_smoke.nerf_point_macs(depth=3, width=48, skip_at=1, pos_freqs=5, dir_freqs=2)
+    assert tiny == 30 * 48 + 48 * 48 + 78 * 48 + 48 * 49 + (48 + 12) * 24 + 24 * 3
+    flops = chip_smoke.nerf_step_flops(4096, 64 + 128)
+    assert flops == 6 * 786432 * 591488
+    assert round(flops / chip_smoke.PEAK_FLOPS[torch.float32] * 1e3, 1) == 41.7
+    # extraction: trunk + color_fc's feature columns per point, the rest per view
+    assert chip_smoke.nerf_extract_flops(1, 0) == 2 * (555264 + 256 * 128)
+    assert chip_smoke.nerf_extract_flops(10, 96) == 10 * (
+        2 * (555264 + 256 * 128) + 96 * (2 * 128 * 3 + 2 * 128 + 12))
+
+
+def test_density_on_boxes_passes_on_the_boxes_and_fails_off_them():
+    grid = np.zeros((40, 40, 20, 4), np.float32)
+    grid[8:14, 10:16, 4:10, 3] = 9.0
+    grid[28:32, 26:30, 10:14, 3] = 8.0
+    boxes = np.array([[11.0, 13.0, 7.0, 6, 6, 6, 0], [30.0, 28.0, 12.0, 4, 4, 4, 0]])
+    dist = chip_smoke.density_on_boxes(grid, boxes, scale=1.0)
+    assert max(dist) < 1e-6
+    with pytest.raises(AssertionError, match="no density near"):
+        chip_smoke.density_on_boxes(grid, boxes - np.array([[0, 0, 0, 0, 0, 0, 0],
+                                                            [9, 0, 0, 0, 0, 0, 0]]), scale=1.0)
+    shifted = boxes + np.array([[4.0, 0, 0, 6, 6, 6, 0], [0, 0, 0, 0, 0, 0, 0]])  # blob 4 off
+    with pytest.raises(AssertionError, match="off the density"):
+        chip_smoke.density_on_boxes(grid, shifted, scale=1.0)
+    with pytest.raises(AssertionError, match="no positive density"):
+        chip_smoke.density_on_boxes(np.zeros_like(grid), boxes, scale=1.0)
