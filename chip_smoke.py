@@ -130,7 +130,27 @@ Phases (any failure raises and the exit code is not 0):
      `run_fcos.main` trains swin_s 160^3 at batch 1 for 2 steps on the
      extracted grid and its boxes (finite losses, positives, 22 + 22
      fused-block launches a step);
- 18. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 18. data parallelism: (a) `python -m torch.distributed.run --standalone
+     --nproc_per_node 1` of this script's --rank_main, which calls
+     `nerf_mae_torch.run_mae_pretrain.main` with phase 7's flags (swin_b
+     160^3, batch 8, 6 steps) in a rank of an NCCL group of one (every
+     collective runs; the mesh logs its count and the gradient bytes
+     reduced): 22 + 22 launches a step and losses bitwise equal to phase 7's
+     run without a group (else within the spread of two plain runs, which
+     the line says), then `--mode benchmark` under torchrun beside phase 7's;
+     (b) two ranks sharing the card over gloo (CUDA tensors), started by
+     nerf_mae_torch.parallel.dryrun.launch, through parallel and MAETrainer
+     at swin_b 160^3 with a global batch of 8 (4 a rank) for 2 steps, in
+     float32 and in bf16, against one process on the joined batch from the
+     same weights, draws and batch: at batch 8, each step's loss within rel
+     1e-3 and the parameters within 2 lr a step (the reduced gradients'
+     distance reported); as the ranks' two micro-batches with accumulated
+     gradients (no collective), the reduced gradients per group within rel
+     L2 1e-3 before each update; 22 + 22 launches a step on each rank, the
+     replicas equal; (c) `run_fcos.main` (OBB, swin_s 160^3, batch 8) under torchrun
+     for 2 steps from phase 12's MAE: finite losses, positives, 22 + 22
+     launches a step, the first loss bitwise equal to phase 14's;
+ 19. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Every phase header prints the seconds since the start.
 Without a CUDA card it exits with code 1 and prints no result.
@@ -140,6 +160,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
+import importlib
 import json
 import math
 import os
@@ -156,7 +178,7 @@ import torch
 
 from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain, run_nerf, run_rpn,
                             run_rpn_detect, run_voxel_semantics, run_voxel_sr)
-from nerf_mae_torch.common import load_mae_params
+from nerf_mae_torch.common import ListDataset, load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
 from nerf_mae_torch.data import (
     SceneDataset,
@@ -165,6 +187,7 @@ from nerf_mae_torch.data import (
     native,
     rotate_and_scale_scene,
     synthetic_detection_scenes,
+    synthetic_scenes,
 )
 from nerf_mae_torch.ops.patchify import patchify_np
 from nerf_mae_torch.models import heads
@@ -814,7 +837,7 @@ def phase_train(dev, tmp, smi):
         f"dense), peak memory {bench['peak_mem_gib']:.3f} GiB | {smi}")
     if not math.isfinite(bench["loss"]):
         raise AssertionError("benchmark loss not finite")
-    return launches, bench
+    return launches, bench, history
 
 
 def step_breakdown(dev):
@@ -1906,7 +1929,7 @@ def phase_fcos(dev, tmp, smi, mae_ckpt):
     del trainer, state, batch
     torch.cuda.empty_cache()
     fcos_compare_with_plain(dev, mae_sd)
-    return launches, benches, parts
+    return launches, benches, parts, history
 
 
 # The anchor RPN and the RCNN (phase 15): launch/train_rpn.sh's flags with
@@ -3056,6 +3079,364 @@ def phase_l0(dev, smi):
             raise AssertionError(f"FCOS on the extracted grid: {hist}")
     return s
 
+# Data parallelism (phase 18): the drivers under torchrun with NCCL at world
+# size 1 (every collective runs), and two ranks sharing the card over gloo,
+# held against one process on the joined batch.
+DP_GLOO_STEPS = 2  # (b): steps of the two gloo ranks and of the reference
+DP_FCOS_STEPS = 2  # (c): run_fcos steps under torchrun
+DP_LOSS_REL = 1e-3  # (b): each step's loss against one process on the batch
+DP_GRAD_REL = 1e-3  # (b): reduced gradients per group (rel L2), before the update
+DP_TIMEOUT_S = 420
+MESH_LOG = re.compile(r"data mesh rank (\d+) of (\d+) \((\w+)\): (\d+) collectives, "
+                      r"(\d+) gradient bytes reduced")
+
+
+def torchrun_command(module, out, argv, nproc=1):
+    """`python -m torch.distributed.run --standalone` of this script's
+    --rank_main: the driver module's main(argv) in each rank, rank 0
+    writing its result and launch counts to `out`."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            str(nproc), os.path.abspath(__file__), "--rank_main", module, out, *argv]
+
+
+def mesh_report(text):
+    """[(rank, world, backend, collectives, gradient bytes)] from the
+    drivers' closing mesh log lines."""
+    return [(int(r), int(w), b, int(c), int(g)) for r, w, b, c, g in MESH_LOG.findall(text)]
+
+
+def rank_main(module, out, argv):
+    """Under torchrun: `nerf_mae_torch.<module>.main(argv)` in this rank, with
+    the numerics main() sets; rank 0 writes {"result", "launches"} to out."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launches()
+    result = importlib.import_module(f"nerf_mae_torch.{module}").main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    if os.environ.get("RANK", "0") == "0":
+        with open(out, "w") as f:
+            json.dump({"result": result, "launches": read_launches()}, f)
+    return 0
+
+
+def torchrun(module, argv, tmp, tag):
+    """Run a driver under torchrun on one card (NCCL, world size 1); returns
+    (rank 0's result, its launches, the mesh report, seconds)."""
+    out = os.path.join(tmp, f"{tag}.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(torchrun_command(module, out, argv), capture_output=True, text=True,
+                          timeout=DP_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"torchrun {module} ({tag}) failed (rc {proc.returncode}):\n"
+                             + "\n".join(text.splitlines()[-40:]))
+    with open(out) as f:
+        got = json.load(f)
+    report = mesh_report(text)
+    if [r[:3] for r in report] != [(0, 1, "nccl")] or report[0][3] == 0:
+        raise AssertionError(f"torchrun {module} ({tag}): expected one NCCL rank of 1 that "
+                             f"ran collectives, the mesh logged {report}")
+    return got["result"], got["launches"], report[0], secs
+
+
+def phase_dp_world1(tmp, train_history, bench, smi):
+    """(a) run_mae_pretrain under torchrun, NCCL at world size 1, phase 7's
+    flags: its losses against phase 7's non-distributed run, 22 + 22
+    launches a step, the gradient bytes reduced a step; then its
+    benchmark beside phase 7's."""
+    common = ["--dataset", "synthetic", "--backbone_type", "swin_b", "--resolution", str(RES),
+              "--batch_size", str(TRAIN_BATCH), "--device", "cuda", "--n_synthetic",
+              str(TRAIN_BATCH), "--seed", "0"]
+    train = ["--mode", "train", *common, "--steps", str(TRAIN_STEPS), "--log_interval", "1",
+             "--eval_interval", "1000000", "--ckpt_interval", "1000000"]
+    result, launches, report, secs = torchrun(
+        "run_mae_pretrain", [*train, "--checkpoint_dir", os.path.join(tmp, "dp_mae")], tmp,
+        "dp_mae_train")
+    losses = [h["loss"] for h in result["history"]]
+    plain = [h["loss"] for h in train_history]
+    grad_bytes = report[4] // TRAIN_STEPS
+    log(f"  (a) torchrun --nproc_per_node 1 run_mae_pretrain (NCCL, world 1): {TRAIN_STEPS} "
+        f"steps in {secs:.1f} s (process and data included), losses {losses}, launches "
+        f"{launches}, {report[3]} collectives, {grad_bytes} gradient bytes reduced a step "
+        f"({grad_bytes / 2**20:.1f} MiB)")
+    want = 22 * TRAIN_STEPS
+    if launches["block"] != want or launches["block_bwd"] != want:
+        raise AssertionError(f"torchrun launches {launches}, expected {want} + {want}")
+    if losses == plain:
+        log(f"  losses bitwise equal to phase 7's non-distributed run {plain}")
+    else:
+        again = [h["loss"] for h in run_mae_pretrain.main(
+            [*train, "--checkpoint_dir", os.path.join(tmp, "dp_plain")])["history"]]
+        spread = max(abs(a - b) for a, b in zip(again, plain))
+        off = max(abs(a - b) for a, b in zip(losses, plain))
+        log(f"  losses differ from phase 7's {plain} by up to {off:.3e}; a second plain run "
+            f"{again} differs by up to {spread:.3e} (the plain run is "
+            f"{'not ' if spread else ''}repeatable)")
+        if not spread or off > spread:
+            raise AssertionError("the NCCL world-1 losses lie outside the plain runs' spread")
+    bres, _, _, bsecs = torchrun("run_mae_pretrain", ["--mode", "benchmark", *common], tmp,
+                                 "dp_mae_bench")
+    log(f"  (a) benchmark under torchrun: {bres['step_ms']:.3f} ms/step (std "
+        f"{bres['step_ms_std']:.3f}), {bres['grids_per_sec']:.4f} grids/s, world "
+        f"{bres['world_size']}, {bres['batch_per_rank']} a rank, peak "
+        f"{bres['peak_mem_gib']} GiB; phase 7 without a group: {bench['step_ms']:.3f} "
+        f"ms/step ({bsecs:.1f} s) | {smi}")
+
+
+def dp_host_batch(seed, resolution, batch):
+    """The global batch of phase 18 (b): synthetic scenes, patch-major, as
+    run_mae_pretrain feeds them."""
+    ds = ListDataset([{"rgbsigma": g} for g in synthetic_scenes(batch, resolution, seed)])
+    it = mae_batch_iterator(ds, batch, resolution, shuffle=False, loop=False, patch_major=4)
+    return next(it)
+
+
+def _snapshot(state):
+    """The (model, optimizer) state dicts of a TrainState, copied."""
+    return ({k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            copy.deepcopy(state.optimizer.state_dict()))
+
+
+def _restore(state, start):
+    """Load a _snapshot (a copy of its optimizer state: the optimizer keeps
+    and steps the tensors it is given, and the snapshot serves twice)."""
+    state.model.load_state_dict(start[0])
+    state.optimizer.load_state_dict(copy.deepcopy(start[1]))
+
+
+def _recorded_steps(trainer, batch, seed, steps, starts=None, record_starts=False):
+    """init(seed) and `steps` steps: (losses, [per step {name: gradient
+    before the clip}], [per step {name: parameter after}], launches,
+    [per step the state before it] when record_starts). Given `starts`,
+    step k begins from starts[k]: the weights and optimizer state of the
+    run compared with."""
+    state = trainer.init(seed)
+    names = [n for n, _ in state.model.named_parameters()]
+    grads, params, losses, begun = [], [], [], []
+    clip = trainer.clip
+
+    def recorded(gs, max_norm):
+        grads.append({n: g.detach().clone() for n, g in zip(names, gs)})
+        return clip(gs, max_norm)
+
+    trainer.clip = recorded
+    reset_launches()
+    for k in range(steps):
+        if starts is not None:
+            _restore(state, starts[k])
+        if record_starts:
+            begun.append(_snapshot(state))
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        params.append({n: p.detach().clone() for n, p in state.model.named_parameters()})
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize()
+    return losses, grads, params, read_launches(), begun
+
+
+def _microbatch_steps(cfg, tcfg, host, seed, steps, parts, dev, starts):
+    """One process on the joined batch computed as `parts` micro-batches
+    whose gradients accumulate: the rows the ranks hold, without a
+    collective. Each step begins from starts[k], draws the mask for the
+    whole batch and the keep factors as the ranks do, divides each part's
+    loss by the whole batch's counts, then clips once and makes one AdamW
+    update (MAETrainer's). Returns what _recorded_steps returns."""
+    from nerf_mae_torch.common import to_device
+    from nerf_mae_torch.ops.draws import batch_generator
+    from nerf_mae_torch.train.trainer import _DROPPATH, _MASK, MAETrainer, stream_seed
+
+    trainer = MAETrainer(cfg, tcfg, steps, device=dev)
+    state = trainer.init(seed)
+    model, opt = state.model, state.optimizer
+    batch = to_device(host, dev)
+    n = batch["grids"].shape[0]
+    rows = [slice(i * n // parts, (i + 1) * n // parts) for i in range(parts)]
+    names = [name for name, _ in model.named_parameters()]
+    losses, grads, params = [], [], []
+    reset_launches()
+    for step in range(steps):
+        _restore(state, starts[step])
+        model.train()
+        mask = block_mask_3d(trainer._generator(seed, step, _MASK), n, cfg.token_grid,
+                             block=cfg.mask_block, p_remove=cfg.masking_prob,
+                             strategy=cfg.masking_strategy, per_sample=cfg.per_sample_mask)
+        counts = []  # the whole batch's [n_rgb, n_alpha], from the data alone
+        mae_loss(torch.zeros((n,) + (cfg.resolution,) * 3 + (4,), device=dev), batch["grids"],
+                 mask, batch["sizes"], cfg, count_sum=lambda t: counts.append(t) or t)
+        opt.zero_grad(set_to_none=True)
+        total = 0.0
+        for sl in rows:
+            keep = batch_generator(dev, stream_seed(seed, step, _DROPPATH), sl.start, n)
+            pred, _ = model(batch["grids"][sl], False, token_mask=mask[sl], patched_pred=True,
+                            droppath_generator=keep)
+            loss, _ = mae_loss(pred, batch["grids"][sl], mask[sl], batch["sizes"][sl], cfg,
+                               count_sum=lambda t: counts[0])
+            loss.backward()
+            total += float(loss)
+        for prm in model.parameters():
+            if prm.grad is None:
+                prm.grad = torch.zeros_like(prm)
+        gs = [prm.grad for prm in model.parameters()]
+        grads.append({name: g.detach().clone() for name, g in zip(names, gs)})
+        trainer.clip(gs, tcfg.clip_grad_norm)
+        for group in opt.param_groups:
+            group["lr"] = trainer.schedule(state.step)
+        opt.step()
+        state.step += 1
+        losses.append(total)
+        params.append({name: prm.detach().clone() for name, prm in model.named_parameters()})
+    return losses, grads, params, read_launches(), []
+
+
+def _against(grads, params, losses, ref):
+    """Per step: loss rel, gradients' rel L2 by group, parameters' max
+    difference, of a run against a reference (_recorded_steps' tuple)."""
+    return {"loss_rel": [abs(a - b) / abs(b) for a, b in zip(losses, ref[0])],
+            "grad_rel": [group_rel(g, r) for g, r in zip(grads, ref[1])],
+            "param_diff": [max(float((p[k] - r[k]).abs().max()) for k in r)
+                           for p, r in zip(params, ref[2])]}
+
+
+def gloo_rank(steps, seed, backbone, resolution, batch, device="cuda",
+              dtypes=("float32", "bfloat16")):
+    """A launch target of phase 18 (b): one of two ranks on the one card over
+    gloo (CUDA tensors), the MAE at a global batch of `batch`, in each of
+    `dtypes`. After each, rank 0 runs one process on the joined batch (at
+    batch `batch`, and as two micro-batches of the ranks' rows) and
+    compares. Returns {dtype: numbers}."""
+    from nerf_mae_torch.common import to_device
+    from nerf_mae_torch.parallel import barrier, gather_objects, make_mesh, shard_batch
+    from nerf_mae_torch.train.trainer import MAETrainer
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = dp_host_batch(seed, resolution, batch)
+    tcfg = TrainConfig(batch_size=batch)
+    out = {}
+    with make_mesh(2, device=device, backend="gloo") as mesh:
+        for dtype in dtypes:
+            cfg = MAEConfig(swin=SWIN_PRESETS[backbone], resolution=resolution,
+                            compute_dtype=dtype)
+            losses, grads, params, launches, starts = _recorded_steps(
+                MAETrainer(cfg, tcfg, steps, mesh=mesh), shard_batch(host, mesh), seed, steps,
+                record_starts=mesh.rank == 0)
+            flat = torch.cat([p.reshape(-1) for p in params[-1].values()]).cpu().numpy()
+            digests = gather_objects(hashlib.sha256(flat.tobytes()).hexdigest(), mesh)
+            del flat
+            o = out[dtype] = {
+                "rank": mesh.rank, "backend": dist.get_backend(), "device": str(mesh.device),
+                "losses": losses, "launches": launches,
+                "replicas_equal": len(set(digests)) == 1, "grad_bytes": mesh.grad_bytes}
+            if mesh.rank == 0:
+                dev = mesh.device
+                ref = _recorded_steps(MAETrainer(cfg, tcfg, steps, device=dev),
+                                      to_device(host, dev), seed, steps, starts)
+                o["ref_losses"], o["lr"] = ref[0], tcfg.lr
+                o["vs_batch"] = _against(grads, params, losses, ref)
+                micro = _microbatch_steps(cfg, tcfg, host, seed, steps, 2, dev, starts)
+                o["vs_micro"] = _against(grads, params, losses, micro)
+                o["micro_vs_batch"] = _against(micro[1], micro[2], micro[0], ref)
+                del ref, micro
+            del grads, params, starts
+            if mesh.device.type == "cuda":
+                torch.cuda.empty_cache()
+            barrier(mesh)  # rank 1 waits for the references
+    return out
+
+
+def phase_dp_gloo(smi):
+    """(b) two gloo ranks sharing the card against one process on the joined
+    batch, in float32 and in bf16: 22 + 22 launches a step on each rank,
+    the replicas equal. Each step of the references begins from the ranks'
+    weights and optimizer state before it (at the random initial weights a
+    parameter difference of 1e-7 after one step changes the next step's
+    gradients by ~2e-3). Against one process at batch 8 each step's loss
+    within rel 1e-3 and the parameters within 2 lr after it (Adam's
+    sign-like update); the
+    reduced gradients per group within rel L2 1e-3, before the update,
+    against one process that computes the joined batch as the ranks' two
+    micro-batches (gradient accumulation, no collective). Against one
+    process at batch 8 the gradients are reported, with the micro-batch
+    process's own distance from it: at the random initial weights the
+    backward amplifies the rounding differences of a batch of 4 against one
+    of 8 (other GEMM and convolution algorithms) up to ~2e-3 in stage 3 in
+    float32, and bf16 rounds each part's plain-layer weight gradients."""
+    from nerf_mae_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    out = dryrun.launch("chip_smoke:gloo_rank", 2, {
+        "steps": DP_GLOO_STEPS, "seed": 0, "backbone": "swin_b", "resolution": RES,
+        "batch": TRAIN_BATCH}, local_world=1, timeout_s=DP_TIMEOUT_S, threads=4)
+    secs = time.perf_counter() - t0
+    want = 22 * DP_GLOO_STEPS
+    worst = lambda rels: [f"{max(g.values()):.3e}" for g in rels]
+    for dtype in out[0]:
+        r0 = out[0][dtype]
+        for o in (r[dtype] for r in out):
+            log(f"  (b) {dtype}: rank {o['rank']} on {o['device']} over {o['backend']}: losses "
+                f"{o['losses']}, launches {o['launches']}, replicas equal "
+                f"{o['replicas_equal']}")
+            if o["backend"] != "gloo" or o["device"] != "cuda:0":
+                raise AssertionError(f"rank {o['rank']} ran on {o['device']} over {o['backend']}")
+            if o["launches"]["block"] != want or o["launches"]["block_bwd"] != want:
+                raise AssertionError(f"rank {o['rank']} launches {o['launches']}, expected "
+                                     f"{want} + {want}")
+            if not o["replicas_equal"] or o["losses"] != r0["losses"]:
+                raise AssertionError("the two ranks' parameters or global losses differ")
+        vb, vm, mb = r0["vs_batch"], r0["vs_micro"], r0["micro_vs_batch"]
+        log(f"  (b) {dtype} against one process at batch {TRAIN_BATCH} (losses "
+            f"{r0['ref_losses']}): loss rel {[f'{x:.3e}' for x in vb['loss_rel']]} (tol "
+            f"{DP_LOSS_REL}), parameters' max difference after each step "
+            f"{vb['param_diff']} (tol 2 lr = {2 * r0['lr']:g}); reduced gradients' worst group "
+            f"rel L2 per step "
+            f"{worst(vb['grad_rel'])} (the micro-batch process's own: "
+            f"{worst(mb['grad_rel'])}); step 1 by group: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in vb["grad_rel"][0].items()) + f" | {smi}")
+        log(f"  (b) {dtype} against one process as the ranks' two micro-batches: loss rel "
+            f"{[f'{x:.3e}' for x in vm['loss_rel']]}, reduced gradients' worst group rel L2 "
+            f"per step {worst(vm['grad_rel'])} (tol {DP_GRAD_REL}), parameters' max "
+            f"difference {vm['param_diff']}")
+        if max(vb["loss_rel"]) > DP_LOSS_REL or max(vm["loss_rel"]) > DP_LOSS_REL:
+            raise AssertionError(f"{dtype}: the gloo ranks' losses disagree with one process")
+        if max(vb["param_diff"] + vm["param_diff"]) > 2 * r0["lr"]:
+            raise AssertionError(f"{dtype}: the gloo ranks' parameters left 2 lr of one "
+                                 "process's")
+        if max(max(g.values()) for g in vm["grad_rel"]) > DP_GRAD_REL:
+            raise AssertionError(f"{dtype}: the reduced gradients disagree with one process "
+                                 "on the same micro-batches")
+    grad_bytes = out[0]["float32"]["grad_bytes"] // DP_GLOO_STEPS  # float32 runs first
+    log(f"  (b) {grad_bytes} gradient bytes reduced a step ({grad_bytes / 2**20:.1f} MiB); "
+        f"{secs:.1f} s with the processes")
+
+
+def phase_dp_fcos(tmp, mae_ckpt, fcos_history, smi):
+    """(c) run_fcos (OBB, swin_s 160^3, batch 8) under torchrun at world
+    size 1 for 2 steps from phase 12's MAE: the global num_pos path on the
+    card; its first loss against phase 14's (the same weights, batch and
+    draws)."""
+    common = ["--mode", "train", "--dataset", "synthetic", "--backbone_type", "swin_s",
+              "--resolution", str(RES), "--batch_size", str(HEAD_BATCH), "--device", "cuda",
+              "--n_synthetic", str(HEAD_BATCH), "--seed", "0", *FCOS_FLAGS,
+              "--steps", str(DP_FCOS_STEPS), "--mae_checkpoint", mae_ckpt, "--checkpoint_dir",
+              os.path.join(tmp, "dp_fcos"), "--log_interval", "1", "--eval_interval",
+              "1000000", "--ckpt_interval", "1000000"]
+    result, launches, report, secs = torchrun("run_fcos", common, tmp, "dp_fcos")
+    history = result["history"]
+    log(f"  (c) torchrun run_fcos (NCCL, world 1): {DP_FCOS_STEPS} steps in {secs:.1f} s, "
+        f"losses {[h['loss'] for h in history]}, num_pos {[h['num_pos'] for h in history]}, "
+        f"launches {launches}, {report[3]} collectives; phase 14's first loss "
+        f"{fcos_history[0]['loss']} | {smi}")
+    want = 22 * DP_FCOS_STEPS
+    if launches["block"] != want or launches["block_bwd"] != want:
+        raise AssertionError(f"torchrun run_fcos launches {launches}, expected {want} + {want}")
+    if not all(math.isfinite(h["loss"]) and h["num_pos"] > 0 for h in history):
+        raise AssertionError(f"torchrun run_fcos history {history}")
+    if history[0]["loss"] != fcos_history[0]["loss"]:
+        raise AssertionError("torchrun run_fcos's first loss differs from phase 14's")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3111,7 +3492,7 @@ def main() -> int:
     log(f"[7] train main path: run_mae_pretrain at swin_b 160^3, batch {TRAIN_BATCH}, "
         f"{TRAIN_STEPS} steps, then eval from the checkpoint and the benchmark")
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, bench = phase_train(dev, tmp, smi)
+        train_launches, bench, train_history = phase_train(dev, tmp, smi)
     parts, peaks = step_breakdown(dev)
     log(f"  train step breakdown at batch {TRAIN_BATCH} (ms, device timeline): "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
@@ -3131,7 +3512,7 @@ def main() -> int:
     log(f"[11] swin_s kernel cases: fused block forward and backward vs plain (160^3, "
         f"batch {HEAD_BATCH})")
     phase_swin_s_kernels(dev)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp:  # holds phase 12's MAE until phase 18
         log(f"[12] voxel super-resolution: swin_s {RES}^3 -> {SR_OUT[0]}^3, batch "
             f"{HEAD_BATCH}, {HEAD_STEPS} steps from a swin_s MAE checkpoint; benchmarks at "
             f"{SR_OUT}")
@@ -3143,24 +3524,35 @@ def main() -> int:
         log(f"[14] FCOS detection: OBB, swin_s {RES}^3, batch {HEAD_BATCH}, {FCOS_STEPS} steps "
             "from the same MAE checkpoint (launch/train_fcos_pretrained.sh's flags), eval, "
             "benchmarks (OBB and AABB)")
-        phase_fcos(dev, tmp, smi, mae_ckpt)
+        fcos_history = phase_fcos(dev, tmp, smi, mae_ckpt)[3]
         log(f"[15] anchor RPN + RCNN: AABB, swin_s {RES}^3, batch {HEAD_BATCH}, {RPN_STEPS} RPN "
             "steps from the same MAE checkpoint (launch/train_rpn.sh's flags), eval, "
             f"benchmarks (AABB and OBB); then {RCNN_STEPS} RCNN steps over that RPN, eval")
         rpn_ckpt = phase_rpn(dev, tmp, smi, mae_ckpt)
         phase_rcnn(dev, tmp, smi, rpn_ckpt)
 
-    log(f"[16] training feed: run_mae_pretrain at swin_b {RES}^3, batch {TRAIN_BATCH}, from "
-        f"{FEED_SCENES} scenes on disk through four feeds ({', '.join(n for n, _ in FEEDS)}); "
-        "the native collate against numpy; the e2e AP recipe cut for liveness")
-    phase_feed(dev, smi, bench)
+        log(f"[16] training feed: run_mae_pretrain at swin_b {RES}^3, batch {TRAIN_BATCH}, "
+            f"from {FEED_SCENES} scenes on disk through four feeds "
+            f"({', '.join(n for n, _ in FEEDS)}); the native collate against numpy; the e2e "
+            "AP recipe cut for liveness")
+        phase_feed(dev, smi, bench)
 
-    log(f"[17] L0 data production: run_nerf train_extract at the JAX defaults ({L0_STEPS} "
-        f"steps) on {L0_VIEWS} views of {L0_HW[1]}x{L0_HW[0]}, the grid on the boxes, the "
-        "depth-guided step, card against CPU, 2 swin_s FCOS steps on the extracted grid")
-    phase_l0(dev, smi)
+        log(f"[17] L0 data production: run_nerf train_extract at the JAX defaults ({L0_STEPS} "
+            f"steps) on {L0_VIEWS} views of {L0_HW[1]}x{L0_HW[0]}, the grid on the boxes, the "
+            "depth-guided step, card against CPU, 2 swin_s FCOS steps on the extracted grid")
+        phase_l0(dev, smi)
 
-    log(f"[18] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+        log(f"[18] data parallelism: (a) run_mae_pretrain under torchrun (NCCL, world 1) at "
+            f"swin_b {RES}^3, batch {TRAIN_BATCH}, phase 7's flags, and its benchmark; (b) two "
+            f"gloo ranks sharing the card ({TRAIN_BATCH // 2} a rank, {DP_GLOO_STEPS} steps) "
+            f"against one process on the joined batch; (c) run_fcos under torchrun, "
+            f"{DP_FCOS_STEPS} steps from phase 12's MAE")
+        torch.cuda.empty_cache()
+        phase_dp_world1(tmp, train_history, bench, smi)
+        phase_dp_gloo(smi)
+        phase_dp_fcos(tmp, mae_ckpt, fcos_history, smi)
+
+    log(f"[19] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "
@@ -3197,4 +3589,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank_main"]:  # a rank of phase 18's torchrun
+        sys.exit(rank_main(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

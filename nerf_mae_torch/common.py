@@ -13,6 +13,14 @@ patch-major leaves channel-flat, casts float32 grid leaves to
 and uploads it on a dedicated copy stream; the training stream waits on the
 copy's event. --device_data instead uploads the whole corpus once and
 serves batches as device gathers (data/device_cache.py).
+
+Data parallelism (build_mesh): under torchrun every driver trains on the
+process group's ranks, `--batch_size` being the global batch, as in JAX
+(`torchrun --nproc_per_node N -m nerf_mae_torch.run_<task> ...`). A rank's
+feed loads its rows of each batch; checkpoints, the metric log, --eval_json,
+--profile_dir and the benchmark's JSON line are rank 0's (the others wait at
+a barrier where rank 0 writes); the evals reduce to the global batch's
+metrics on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +43,15 @@ from nerf_mae_torch.data.device_cache import (
     casts_to,
     corpus_from_iterator,
     device_corpus_batches,
+)
+from nerf_mae_torch.parallel.mesh import (
+    DataMesh,
+    barrier,
+    distributed,
+    gather_objects,
+    is_main,
+    make_mesh,
+    shard_batch,
 )
 from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from nerf_mae_torch.utils import MetricLogger
@@ -76,7 +93,84 @@ def add_common_flags(p: argparse.ArgumentParser,
                    help="held-out synthetic eval scenes (0: n_synthetic/4)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     add_feed_flags(p)
+    add_mesh_flags(p)
     return p
+
+
+def add_mesh_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """--mesh_space (scripts/common.py's flag): the [data, space] grid
+    sharding, which the port does not have yet; build_mesh refuses > 1."""
+    p.add_argument("--mesh_space", default=1, type=int,
+                   help="shard the voxel grid's first spatial dim over this many "
+                        "devices (not in the port yet: only 1)")
+    return p
+
+
+def build_mesh(args, spatial_ok: bool = True) -> DataMesh:
+    """The driver's data mesh (parallel.make_mesh on --device): the process
+    group of torchrun's environment, or one process without a group.
+    --mesh_space > 1 raises SystemExit: the grid sharding is not ported yet
+    (detection refuses it as its JAX drivers do, spatial_ok=False)."""
+    if (getattr(args, "mesh_space", 1) or 1) > 1:
+        if not spatial_ok:
+            raise SystemExit(
+                "--mesh_space > 1 is only supported by the MAE/SR/semantics "
+                "trainers (detection trainers are data-parallel only)")
+        raise SystemExit("--mesh_space > 1: the [data, space] grid sharding is not in the "
+                         "PyTorch port yet (data parallelism only: torchrun "
+                         "--nproc_per_node N)")
+    mesh = make_mesh(device=args.device)
+    if distributed(mesh):
+        log.info("data mesh: rank %d of %d on %s over %s, global batch %d (%d a rank)",
+                 mesh.rank, mesh.world_size, mesh.device,
+                 torch.distributed.get_backend(mesh.group), args.batch_size,
+                 args.batch_size // mesh.world_size)
+    return mesh
+
+
+def save_on_main(mesh: Optional[DataMesh], ckpt_dir: str, step: int, state, **kw) -> None:
+    """Rank 0 writes the state's checkpoint (save_checkpoint), the others
+    wait for it at a barrier."""
+    if is_main(mesh):
+        save_checkpoint(ckpt_dir, step, state.model.state_dict(),
+                        state.optimizer.state_dict(), **kw)
+    barrier(mesh)
+
+
+def write_eval_json(args, mesh: Optional[DataMesh], out: Dict) -> None:
+    if args.eval_json and is_main(mesh):
+        with open(args.eval_json, "w") as f:
+            json.dump(out, f)
+
+
+def metric_logger(args, mesh: Optional[DataMesh], run_name: str) -> MetricLogger:
+    """The run's MetricLogger (--log_dir, --wandb) on rank 0, one that
+    writes nothing on the others."""
+    main = is_main(mesh)
+    return MetricLogger(args.log_dir if main else None, use_wandb=args.wandb and main,
+                        run_name=run_name, config=vars(args))
+
+
+def eval_shards(batches: Iterable[Dict[str, np.ndarray]], mesh: Optional[DataMesh]
+                ) -> Iterator:
+    """(host batch, this rank's rows of it on the mesh's device) for each
+    eval batch. On a group, a batch that does not divide over the ranks is
+    skipped, as the JAX drivers skip it (a static-shape ragged tail)."""
+    world = 1 if mesh is None else mesh.world_size
+    for batch in batches:
+        if distributed(mesh) and len(batch["grids"]) % world:
+            log.warning("eval: skipping a batch of %d scenes (not divisible over %d ranks)",
+                        len(batch["grids"]), world)
+            continue
+        yield batch, shard_batch(batch, mesh)
+
+
+def gather_rows(det: Dict[str, torch.Tensor], mesh: Optional[DataMesh]
+                ) -> Dict[str, np.ndarray]:
+    """Every rank's rows of a prediction dict as host arrays, joined in rank
+    order (the global batch's predictions), on every rank."""
+    parts = gather_objects({k: v.cpu().numpy() for k, v in det.items()}, mesh)
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 def add_feed_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -240,13 +334,16 @@ def overlap_batches(batches: Iterable[Dict[str, np.ndarray]], device: torch.devi
 
 def make_train_batches(args, device: torch.device,
                        host_iter_factory: Callable[[], Iterator[Dict[str, np.ndarray]]],
-                       corpus_iter_factory: Optional[Callable[[], Iterator]] = None
+                       corpus_iter_factory: Optional[Callable[[], Iterator]] = None,
+                       mesh: Optional[DataMesh] = None
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """The training batch stream of a driver (scripts/common.py
-    make_train_batches): the host iterator behind overlap_batches, or under
-    --device_data the corpus (`corpus_iter_factory()`, or the host iterator,
-    drained once: every scene exactly once) uploaded and served as device
-    gathers in the host iterator's epoch order."""
+    make_train_batches): the host iterator (a rank's rows of each batch on
+    a mesh) behind overlap_batches, or under --device_data the corpus
+    (`corpus_iter_factory()`, or the host iterator, drained once: every
+    scene exactly once; the whole corpus on every rank) uploaded and served
+    as device gathers in the host iterator's epoch order, a rank gathering
+    its rows."""
     if not getattr(args, "device_data", False):
         return overlap_batches(host_iter_factory(), device, args.prefetch,
                                transfer_dtype=args.transfer_dtype)
@@ -258,8 +355,9 @@ def make_train_batches(args, device: torch.device,
             "augmentation is incompatible (drop "
             + ", ".join(f"--{a}" for a in aug) + ")")
     corpus = corpus_from_iterator((corpus_iter_factory or host_iter_factory)())
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
     return device_corpus_batches(corpus, device, args.batch_size, seed=args.seed,
-                                 transfer_dtype=args.transfer_dtype)
+                                 transfer_dtype=args.transfer_dtype, rank=rank, world=world)
 
 
 @contextlib.contextmanager
@@ -283,11 +381,17 @@ def maybe_profile(profile_dir: Optional[str], device: torch.device, name: str = 
     log.info("trace written to %s", path)
 
 
-def profiled_steps(args, device: torch.device, steps: Iterable[int]) -> Iterator[int]:
+def profile_dir(args, mesh: Optional[DataMesh] = None) -> Optional[str]:
+    """--profile_dir on rank 0, None on the others."""
+    return getattr(args, "profile_dir", None) if is_main(mesh) else None
+
+
+def profiled_steps(args, device: torch.device, steps: Iterable[int],
+                   mesh: Optional[DataMesh] = None) -> Iterator[int]:
     """The train loop's steps, the first --log_interval of them under
-    maybe_profile(--profile_dir)."""
+    maybe_profile(--profile_dir) on rank 0."""
     steps = list(steps)
-    with maybe_profile(getattr(args, "profile_dir", None), device, "train"):
+    with maybe_profile(profile_dir(args, mesh), device, "train"):
         yield from steps[:args.log_interval]
     yield from steps[args.log_interval:]
 
@@ -330,13 +434,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def mesh_fields(args, mesh: Optional[DataMesh]) -> Dict:
+    """The benchmark line's data-parallel fields: the world size and the
+    per-rank batch (--batch_size is the global one)."""
+    world = 1 if mesh is None else mesh.world_size
+    return {"world_size": world, "batch_per_rank": args.batch_size // world}
+
+
 def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric: str,
                     summary: Callable[[Dict], Dict] = lambda out: {},
-                    reps: int = 20, warmup: int = 3) -> Dict:
+                    reps: int = 20, warmup: int = 3, mesh: Optional[DataMesh] = None) -> Dict:
     """Times `reps` synchronized calls of step() after `warmup`
     (scripts/common.py benchmark_step), under maybe_profile(--profile_dir),
-    and prints one JSON line: ms and its std per step, grids/s, peak device
-    memory, the device, and summary(the last call's output). Returns that
+    and prints one JSON line on rank 0: ms and its std per step, grids/s
+    of the global batch, peak device memory, the device, the world size and
+    per-rank batch, and summary(the last call's output). Returns that
     dict."""
     for _ in range(warmup):
         step()
@@ -344,7 +456,7 @@ def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
-    with maybe_profile(getattr(args, "profile_dir", None), device, metric):
+    with maybe_profile(profile_dir(args, mesh), device, metric):
         for _ in range(reps):
             t = time.perf_counter()
             m = step()
@@ -357,12 +469,14 @@ def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric
         "ms_std": float(np.std(times) * 1e3),
         "grids_per_sec": args.batch_size / (ms / 1e3),
         "batch_size": args.batch_size,
+        **mesh_fields(args, mesh),
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         **summary(m),
     }
-    print(json.dumps(out), flush=True)
+    if is_main(mesh):
+        print(json.dumps(out), flush=True)
     return out
 
 
@@ -372,7 +486,7 @@ def benchmark_eval(args, trainer, state, batch: Dict[str, torch.Tensor], task: s
     return benchmark_steps(
         args, trainer.device, lambda: trainer.eval_step(state, batch),
         f"eval_ms_{task}_{args.backbone_type}_{args.resolution}_to_{out_resolution}",
-        summary=lambda m: {"loss": float(m["loss"])})
+        summary=lambda m: {"loss": float(m["loss"])}, mesh=trainer.mesh)
 
 
 def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.ndarray]]],
@@ -384,17 +498,18 @@ def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.nd
     batch)'s) or train (returns {"steps", "history",
     "checkpoint_dir"}; checkpoints at --ckpt_interval, the best `best_key`
     eval at --eval_interval, and the last step). The training batches are
-    make_train_batches' over batch_iter(train_ds, args), with `corpus_iter`
-    the one-epoch pass that --device_data uploads."""
-    device = trainer.device
+    make_train_batches' over batch_iter(train_ds, args, rank=, world=) (the
+    trainer's mesh's rank and world size), with `corpus_iter` the one-epoch
+    pass that --device_data uploads."""
+    device, mesh = trainer.device, trainer.mesh
     if args.mode == "eval":
         out = run_eval(state)
-        if args.eval_json:
-            with open(args.eval_json, "w") as f:
-                json.dump(out, f)
+        write_eval_json(args, mesh, out)
         return out
-    batches = make_train_batches(args, device, lambda: batch_iter(train_ds, args),
-                                 corpus_iter)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    batches = make_train_batches(
+        args, device, lambda: batch_iter(train_ds, args, rank=rank, world=world),
+        corpus_iter, mesh)
     if args.mode == "benchmark":
         batch = next(batches)
         batches.close()  # no feed work under the timed steps
@@ -411,10 +526,10 @@ def _train(args, trainer, state, batches, run_eval, best_key, log_keys, task):
     history = []
     best = -float("inf")
     total = trainer.total_steps
-    mlog = MetricLogger(args.log_dir, use_wandb=args.wandb,
-                        run_name=f"{task}_{args.backbone_type}", config=vars(args))
+    mesh = trainer.mesh
+    mlog = metric_logger(args, mesh, f"{task}_{args.backbone_type}")
     t0 = time.time()
-    for step in profiled_steps(args, trainer.device, range(state.step + 1, total + 1)):
+    for step in profiled_steps(args, trainer.device, range(state.step + 1, total + 1), mesh):
         state, metrics = trainer.train_step(state, next(batches))
         if step % args.log_interval == 0:
             m = {k: float(v) for k, v in metrics.items()}
@@ -428,15 +543,12 @@ def _train(args, trainer, state, batches, run_eval, best_key, log_keys, task):
             out = run_eval(state)
             if out:
                 mlog.log(step, {f"val_{k}": v for k, v in out.items()})
-            if out.get(best_key, -float("inf")) > best:
+            if out.get(best_key, -float("inf")) > best:  # the same on every rank
                 best = out[best_key]
-                save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
-                                state.optimizer.state_dict(), extra={best_key: best})
+                save_on_main(mesh, args.checkpoint_dir, step, state, extra={best_key: best})
         elif step % args.ckpt_interval == 0:
-            save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
-                            state.optimizer.state_dict())
-    save_checkpoint(args.checkpoint_dir, state.step, state.model.state_dict(),
-                    state.optimizer.state_dict())
+            save_on_main(mesh, args.checkpoint_dir, step, state)
+    save_on_main(mesh, args.checkpoint_dir, state.step, state)
     mlog.close()
     log.info("done: %d steps", state.step)
     return {"steps": state.step, "history": history, "checkpoint_dir": args.checkpoint_dir}

@@ -19,6 +19,12 @@ in which the JAX package's serial iterator draws them), and applied on the
 pool. So `workers=N` gives the batches of `workers=0`, which are the JAX
 package's. (Its iterators draw inside the pool's threads, so under
 workers > 0 its draws follow thread scheduling.)
+
+Data parallelism (the reference's DistributedSampler): given `rank` and
+`world`, an iterator yields rank r's rows [r*b, (r+1)*b) of each global
+batch of `batch_size` (b = batch_size / world) and loads only those scenes.
+Every rank draws the augment parameters of the whole batch, in its order,
+and applies its own, so its rows equal those of the single-process batch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 
 from nerf_mae_torch.data import native
 from nerf_mae_torch.data.pipeline import ScenePool
+from nerf_mae_torch.parallel.mesh import batch_rows
 
 logger = logging.getLogger(__name__)
 
@@ -115,8 +122,10 @@ class SceneDataset:
             )
         scene_list = list(scene_list)[: int(percent_train * len(scene_list))]
         # drop scenes with missing files / empty boxes (reference:
-        # datasets.py:127-143)
+        # datasets.py:127-143); the box width of each scene decides its
+        # augment draws (rot + scale for OBBs only)
         kept = []
+        self._obb = {}
         for s in scene_list:
             if not os.path.isfile(os.path.join(features_path, s + ".npz")):
                 logger.warning("%s has no feature file", s)
@@ -126,6 +135,7 @@ class SceneDataset:
                 if b.shape[0] == 0:
                     logger.warning("%s has no boxes", s)
                     continue
+                self._obb[s] = b.shape[1] == 7
             kept.append(s)
         self.scenes = kept
         self._cache = {}
@@ -172,13 +182,13 @@ class SceneDataset:
             item = self._load(scene)
         return dict(item)
 
-    def draw_augment(self, item: Dict) -> Tuple:
-        """The next augment parameters for `item` from the dataset's
-        generator (the draws augment_scene makes)."""
-        boxes = item.get("boxes")
+    def draw_augment(self, index: int) -> Tuple:
+        """The next augment parameters for scene `index` from the dataset's
+        generator (the draws augment_scene makes); its boxes' width, read
+        when the dataset was made, is all it needs of the scene."""
         return draw_augment(self._rng, self.flip_prob, self.rotate_prob,
                             self.rot_scale_prob,
-                            obb=boxes is not None and boxes.shape[1] == 7)
+                            obb=self._obb.get(self.scenes[index], False))
 
     @staticmethod
     def apply_augment(item: Dict, draws: Tuple) -> Dict:
@@ -187,7 +197,7 @@ class SceneDataset:
     def __getitem__(self, index: int) -> Dict:
         item = self.load_item(index)
         if self.augmented:
-            item = apply_augment(item, self.draw_augment(item))
+            item = apply_augment(item, self.draw_augment(index))
         return item
 
 
@@ -415,25 +425,28 @@ def pad_boxes(boxes: np.ndarray, max_gt: int) -> Tuple[np.ndarray, np.ndarray]:
     return out, valid
 
 
-def _fetch(dataset, sel, pool, finish):
-    """[finish(dataset[j]) for j in sel], assembled on `pool` in order. For
-    a dataset with host augments (`augmented`) the scenes are loaded on the
-    pool, their augment parameters drawn here in `sel`'s order and applied
-    on the pool, so the draws do not depend on the number of workers."""
+def _fetch(dataset, sel, pool, finish, own: slice = slice(None)):
+    """[finish(dataset[j]) for j in sel[own]], assembled on `pool` in order.
+    For a dataset with host augments (`augmented`) the augment parameters
+    of every scene of `sel` are drawn here in its order, the `own` scenes
+    loaded on the pool and their draws applied there, so the draws depend
+    neither on the number of workers nor on the rank."""
     if not getattr(dataset, "augmented", False):
-        return pool.map(lambda j: finish(dataset[int(j)]), sel)
-    items = pool.map(lambda j: dataset.load_item(int(j)), sel)
-    draws = [dataset.draw_augment(item) for item in items]
+        return pool.map(lambda j: finish(dataset[int(j)]), sel[own])
+    draws = [dataset.draw_augment(int(j)) for j in sel][own]
+    items = pool.map(lambda j: dataset.load_item(int(j)), sel[own])
     return pool.map(lambda a: finish(dataset.apply_augment(*a)), list(zip(items, draws)))
 
 
 def detection_batch_iterator(dataset: Sequence, batch_size: int, resolution: int,
                              max_gt: int = 64, shuffle: bool = True, seed: int = 0,
-                             drop_last: bool = True, loop: bool = True, workers: int = 0
+                             drop_last: bool = True, loop: bool = True, workers: int = 0,
+                             rank: int = 0, world: int = 1
                              ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields {"grids": [B, R, R, R, 4] float32, "sizes": [B, 3] int32,
     "gt_boxes": [B, G, 6|7] float32, "gt_valid": [B, G] bool}, in the JAX
-    iterator's order; workers > 0 loads and pads scenes on a thread pool."""
+    iterator's order; workers > 0 loads and pads scenes on a thread pool.
+    world > 1: rank's rows of each batch (module doc)."""
     rng = np.random.RandomState(seed)
     n = len(dataset)
     pool = ScenePool(workers)
@@ -445,14 +458,14 @@ def detection_batch_iterator(dataset: Sequence, batch_size: int, resolution: int
                 sel = order[start: start + batch_size]
                 if len(sel) < batch_size and drop_last:
                     continue
-                pairs = _fetch(dataset, sel, pool, finish)
+                pairs = _fetch(dataset, sel, pool, finish, batch_rows(len(sel), rank, world))
                 box_dim = max((item["boxes"].shape[1] for item, _ in pairs
                                if item.get("boxes") is not None), default=6)
-                grids = np.zeros((len(sel), resolution, resolution, resolution, 4),
-                                 np.float32)
-                sizes = np.zeros((len(sel), 3), np.int32)
-                gt = np.zeros((len(sel), max_gt, box_dim), np.float32)
-                gv = np.zeros((len(sel), max_gt), bool)
+                b = len(pairs)
+                grids = np.zeros((b, resolution, resolution, resolution, 4), np.float32)
+                sizes = np.zeros((b, 3), np.int32)
+                gt = np.zeros((b, max_gt, box_dim), np.float32)
+                gv = np.zeros((b, max_gt), bool)
                 for i, (item, padded) in enumerate(pairs):
                     grids[i], sizes[i] = padded
                     if item.get("boxes") is not None:
@@ -481,13 +494,15 @@ def mae_batch_iterator(
     loop: bool = True,
     workers: int = 0,
     patch_major: int = 0,
+    rank: int = 0,
+    world: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields {"grids": [B, R, R, R, 4] float32, "sizes": [B, 3] int32}
     forever (or one epoch if loop=False), in the JAX iterator's order.
     `dataset[i]["rgbsigma"]` is a channel-last grid. patch_major=p emits
     grids in the patch-major layout [B, t, t, t, p^3, 4] (t = R // p) from
     the native fused pad + patchify. workers > 0 assembles the scenes on a
-    thread pool."""
+    thread pool. world > 1: rank's rows of each batch (module doc)."""
     rng = np.random.RandomState(seed)
     n = len(dataset)
     pool = ScenePool(workers)
@@ -510,9 +525,11 @@ def mae_batch_iterator(
                 sel = order[start: start + batch_size]
                 if len(sel) < batch_size and drop_last:
                     continue
-                grids = np.zeros((len(sel),) + grid_shape, np.float32)
-                sizes = np.zeros((len(sel), 3), np.int32)
-                for i, (g, size) in enumerate(_fetch(dataset, sel, pool, finish)):
+                own = batch_rows(len(sel), rank, world)
+                scenes = _fetch(dataset, sel, pool, finish, own)
+                grids = np.zeros((len(scenes),) + grid_shape, np.float32)
+                sizes = np.zeros((len(scenes), 3), np.int32)
+                for i, (g, size) in enumerate(scenes):
                     grids[i], sizes[i] = g, size
                 yield {"grids": grids, "sizes": sizes}
             if not loop:
@@ -578,10 +595,10 @@ class ConcatDataset:
         sub = self.datasets[d]
         return d, (sub.load_item(j) if getattr(sub, "augmented", False) else sub[j])
 
-    def draw_augment(self, located):
-        d, item = located
+    def draw_augment(self, index: int):
+        d, j = self._locate(index)
         sub = self.datasets[d]
-        return sub.draw_augment(item) if getattr(sub, "augmented", False) else None
+        return sub.draw_augment(j) if getattr(sub, "augmented", False) else None
 
     def apply_augment(self, located, draws):
         d, item = located

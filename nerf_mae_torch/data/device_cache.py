@@ -15,6 +15,10 @@ stored channel-flat [N, T, T, T, p^3*C], the layout the transfer of the
 host feed gives (common.transfer_batch), which the model and the loss
 accept. Per-epoch host augments draw fresh randomness on every visit and
 cannot be cached: the drivers refuse them with --device_data.
+
+On a data-parallel mesh every rank holds the whole corpus, as the JAX
+package replicates it over `data` (nerf_mae_tpu/data/device_cache.py:23-27),
+and gathers its rows of each global batch's index vector.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from nerf_mae_torch.parallel.mesh import batch_rows
 
 log = logging.getLogger(__name__)
 
@@ -65,18 +71,23 @@ def device_corpus_batches(
     loop: bool = True,
     drop_last: bool = True,
     transfer_dtype: Optional[str] = None,
+    rank: int = 0,
+    world: int = 1,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield batches gathered from the corpus uploaded once to `device`.
 
     The epoch order is mae_batch_iterator's: a RandomState(seed)
     permutation each epoch, the ragged tail dropped, or (drop_last=False)
-    padded to batch_size by repeating its first index. The yielded dicts
-    have the host iterator's keys and go straight to train_step.
+    padded to batch_size by repeating its first index. `batch_size` is the
+    global batch; world > 1 gathers rank's rows [rank*b, (rank+1)*b) of it.
+    The yielded dicts have the host iterator's keys and go straight to
+    train_step.
     """
     device = torch.device(device)
     n = len(next(iter(corpus.values())))
     if batch_size > n:
         raise ValueError(f"batch_size {batch_size} > corpus size {n}")
+    own = batch_rows(batch_size, rank, world)
     nbytes = corpus_nbytes(corpus, transfer_dtype)
     dev = {}
     for k, v in corpus.items():
@@ -99,6 +110,7 @@ def device_corpus_batches(
                     continue
                 # static shapes: pad the tail by repeating its first index
                 sel = np.concatenate([sel, np.full(batch_size - len(sel), sel[0], sel.dtype)])
+            sel = sel[own]
             idx = torch.from_numpy(np.asarray(sel, np.int64)).to(device, non_blocking=True)
             yield {k: v.index_select(0, idx) for k, v in dev.items()}
         if not loop:

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from nerf_mae_torch.config import SwinConfig
+from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.backbones import init_body, make_body
 from nerf_mae_torch.models.fcos import (
     FCOSConfig,
@@ -54,16 +55,19 @@ class FCOSDetector(nn.Module):
                 gt_boxes: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None, deterministic: bool = True,
                 training: bool = False,
-                droppath_generator: Optional[torch.Generator] = None):
-        """training: (loss, {loss_cls, loss_reg, loss_centerness, num_pos});
-        else the post-processed detections (fcos_postprocess), with the
-        per-level objectness grids `objectness_level{i}` when
-        output_objectness. A training forward (deterministic=False) draws the
-        stochastic-depth keep factors from `droppath_generator`."""
+                droppath_generator: Optional[torch.Generator] = None,
+                count_sum: CountSum = one_rank):
+        """training: (loss, {loss_cls, loss_reg, loss_centerness, num_pos}),
+        `count_sum` going to fcos_loss; else the post-processed detections
+        (fcos_postprocess), with the per-level objectness grids
+        `objectness_level{i}` when output_objectness. A training forward
+        (deterministic=False) draws the stochastic-depth keep factors from
+        `droppath_generator`."""
         feats = self.body(grids, deterministic, droppath_generator)
         logits, bbox_reg, ctr = self.head(feats)
         if training:
-            return fcos_loss(self.fcos, logits, bbox_reg, ctr, gt_boxes, gt_valid, sizes)
+            return fcos_loss(self.fcos, logits, bbox_reg, ctr, gt_boxes, gt_valid, sizes,
+                             count_sum)
         out = fcos_postprocess(self.fcos, logits, bbox_reg, ctr, sizes)
         if self.output_objectness:
             for lvl, ob in enumerate(fcos_objectness(logits, ctr)):

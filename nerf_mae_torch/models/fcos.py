@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.swin import Norm
 from nerf_mae_torch.models.unetr import Conv3d, group_norm
 from nerf_mae_torch.ops.boxes import clip_boxes_to_grid, small_box_mask
@@ -195,10 +196,11 @@ def fcos_targets(cfg: FCOSConfig, gt_boxes: torch.Tensor, gt_valid: torch.Tensor
 
 def fcos_loss(cfg: FCOSConfig, logits: List[torch.Tensor], bbox_reg: List[torch.Tensor],
               ctr: List[torch.Tensor], gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
-              sizes: torch.Tensor):
+              sizes: torch.Tensor, count_sum: CountSum = one_rank):
     """Returns (total, {loss_cls, loss_reg, loss_centerness, num_pos}), as
     FCOSLossComputation (reference: fcos/loss.py:477-591) and the JAX
-    fcos_loss compute them."""
+    fcos_loss compute them. `count_sum` makes num_pos and the centerness sum
+    global before their clamps; the aux num_pos counts the rows given."""
     _, locations, _, _ = level_geometry(cfg.resolution, tuple(cfg.strides), logits[0].device)
     labels, reg_targets = fcos_targets(cfg, gt_boxes, gt_valid)  # [B, L], [B, L, 6|8]
 
@@ -211,11 +213,12 @@ def fcos_loss(cfg: FCOSConfig, logits: List[torch.Tensor], bbox_reg: List[torch.
     pad_valid = (locations[None] < sizes[:, None, :]).all(-1).float()  # [B, L]
     pos = labels * pad_valid
     num_pos = pos.sum()
-    num_pos_norm = torch.clamp(num_pos, min=1.0)
+    ctr_targets = centerness_targets(reg_targets)  # [B, L]
+    total_pos, total_ctr = count_sum(torch.stack([num_pos, (ctr_targets * pos).sum()]))
+    num_pos_norm = torch.clamp(total_pos, min=1.0)
+    sum_ctr = torch.clamp(total_ctr, min=1e-6)
 
     cls_loss = (sigmoid_focal_loss(cls_flat, labels) * pad_valid).sum() / num_pos_norm
-    ctr_targets = centerness_targets(reg_targets)  # [B, L]
-    sum_ctr = torch.clamp((ctr_targets * pos).sum(), min=1e-6)
 
     if cfg.iou_loss_type == "smooth_l1":
         per_loc = _smooth_l1(reg_flat, reg_targets).sum(-1)

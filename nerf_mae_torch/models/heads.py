@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from nerf_mae_torch.config import MAEConfig
+from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.mae import embed_tokens, make_patch_partition
 from nerf_mae_torch.models.swin import SwinEncoder3D, remat_call
 from nerf_mae_torch.models.unetr import UnetOutBlock3D, UnetResBlock3D, UnetrUpBlock3D
@@ -155,22 +156,27 @@ class VoxelSemantics3D(_DenseHead):
         return self.sem_out(d).float()
 
 
-def voxel_sr_loss(pred: torch.Tensor, target_hi: torch.Tensor):
+def voxel_sr_loss(pred: torch.Tensor, target_hi: torch.Tensor,
+                  count_sum: CountSum = one_rank):
     """Alpha-masked RGB MSE against the padded high-res target
     (reference: feature_extractor.py:2134-2161). Returns (loss, aux) with
     aux = {mse, psnr}: the numerator sums 3 channels and the loss divides by
-    the voxel count, mse by the element count (kept as the JAX head has it)."""
+    the voxel count, mse by the element count (kept as the JAX head has it).
+    `count_sum` makes the voxel count global (the loss is then a rank's
+    share) and the metrics' sums global (mse and psnr are the batch's)."""
     target_hi = target_hi.float()
     mask = (target_hi[..., 3:] > 0.01).float()
     se = ((pred[..., :3] - target_hi[..., :3]) ** 2 * mask).sum()
-    loss = se / torch.clamp(mask.sum(), min=1.0)
-    mse = se / torch.clamp(3 * mask.sum(), min=1.0)
+    se_all, n = count_sum(torch.stack([se.detach(), mask.sum()]))
+    loss = se / torch.clamp(n, min=1.0)
+    mse = se_all / torch.clamp(3 * n, min=1.0)
     return loss, {"mse": mse.detach(),
                   "psnr": -10.0 * torch.log10(torch.clamp(mse.detach(), min=1e-12))}
 
 
 def voxel_semantics_loss(logits: torch.Tensor, target: torch.Tensor,
-                         class_weights: Optional[torch.Tensor] = None):
+                         class_weights: Optional[torch.Tensor] = None,
+                         count_sum: CountSum = one_rank):
     """Weighted masked cross-entropy + the soft-mIoU metric (reference:
     feature_extractor.py:2694-2746; metrics.py:540-553 masked_cross_entropy),
     as the JAX head computes them:
@@ -182,8 +188,10 @@ def voxel_semantics_loss(logits: torch.Tensor, target: torch.Tensor,
       * soft mIoU (no gradient) from the softmax of the unmasked logits over
         the valid voxels, averaged over the classes present.
 
-    logits [B, R, R, R, C] float32, target [B, R, R, R] int. Returns
-    (ce, {"ce", "soft_miou"})."""
+    logits [B, R, R, R, C] float32, target [B, R, R, R] int. `count_sum`
+    makes the weight sum (or voxel count) and soft mIoU's per-class sums
+    global: ce is then a rank's share, soft_miou the batch's. Returns (ce,
+    {"ce", "soft_miou"})."""
     c = logits.shape[-1]
     valid = target > 0
     t = torch.where(valid, target, torch.zeros_like(target)).long()
@@ -191,9 +199,10 @@ def voxel_semantics_loss(logits: torch.Tensor, target: torch.Tensor,
     nll = -torch.log_softmax(lg, dim=-1).gather(-1, t[..., None])[..., 0]
     if class_weights is not None:
         w = class_weights.to(nll.device, torch.float32)[t]
-        ce = (nll * w).sum() / torch.clamp(w.sum(), min=1e-9)
+        ce = (nll * w).sum() / torch.clamp(count_sum(w.sum()), min=1e-9)
     else:
-        ce = nll.mean()
+        n = torch.tensor(float(nll.numel()), device=nll.device)
+        ce = nll.sum() / count_sum(n)
 
     with torch.no_grad():
         m = valid.reshape(-1).float()
@@ -203,6 +212,7 @@ def voxel_semantics_loss(logits: torch.Tensor, target: torch.Tensor,
         p_true = probs.gather(1, flat_t[:, None])[:, 0] * m
         inter = torch.zeros(c, device=logits.device).index_add_(0, flat_t, p_true)
         count = torch.zeros(c, device=logits.device).index_add_(0, flat_t, m)
+        p_sum, inter, count = count_sum(torch.stack([p_sum, inter, count]))
         union = p_sum + count - inter
         present = count > 0
         iou = torch.where(present, inter / torch.clamp(union, min=1e-9),

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from nerf_mae_torch.config import MAEConfig
+from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.swin import (
     Norm,
     SwinEncoder3D,
@@ -230,6 +231,7 @@ def mae_loss(
     token_mask: torch.Tensor,  # [B, T, T, T] bool, True = masked
     sizes: torch.Tensor,  # [B, 3] true scene extents
     cfg: MAEConfig,
+    count_sum: CountSum = one_rank,
 ):  # pred/target also accepted pre-patchified [B, T, T, T, p^3, 4]
     """The reference's masked-reconstruction loss, exactly
     (reference: swin_mae3d.py:1513-1563):
@@ -240,7 +242,10 @@ def mae_loss(
       * alpha: sigmoid, then MSE over voxels both inside the valid extent
         and in a masked token patch.
 
-    Returns (loss, aux) with aux = {loss_rgb, loss_alpha, n_rgb, n_alpha}.
+    `count_sum` makes both voxel counts global before their clamps (a
+    data-parallel rank's share of the global loss, metrics.py). Returns
+    (loss, aux) with aux = {loss_rgb, loss_alpha, n_rgb, n_alpha}, the
+    counts of the rows given.
     """
     p = cfg.swin.patch_size[0]
     pred = pred.float()
@@ -256,15 +261,15 @@ def mae_loss(
     pred_rgb, pred_alpha = pred_p[..., :3], pred_p[..., 3:]
 
     alpha_mask = (tgt_alpha > 0.01).float()
-    n_rgb = alpha_mask.sum()
+    mr = mask_remove[..., None]
+    n_rgb, n_alpha = alpha_mask.sum(), mr.sum()
+    total_rgb, total_alpha = count_sum(torch.stack([n_rgb, n_alpha]))
     loss_rgb = ((pred_rgb - tgt_rgb) ** 2 * alpha_mask).sum() / torch.clamp(
-        n_rgb, min=1.0)
+        total_rgb, min=1.0)
 
     pred_alpha = torch.sigmoid(pred_alpha)
-    mr = mask_remove[..., None]
-    n_alpha = mr.sum()
     loss_alpha = ((pred_alpha - tgt_alpha) ** 2 * mr).sum() / torch.clamp(
-        n_alpha, min=1.0)
+        total_alpha, min=1.0)
 
     loss = loss_rgb + loss_alpha
     return loss, {

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.unetr import Conv3d
 from nerf_mae_torch.ops.anchors import rank_by_draw
 from nerf_mae_torch.ops.boxes import box_iou_aabb, unit_box_where
@@ -35,6 +36,7 @@ from nerf_mae_torch.ops.coders import (
     encode_aabb_deltas,
     encode_rotated_deltas,
 )
+from nerf_mae_torch.ops.draws import batch_rand
 from nerf_mae_torch.ops.nms import sort_desc
 from nerf_mae_torch.ops.obb import obb2hbb_3d
 from nerf_mae_torch.ops.roi_align import aabb_to_rois7, fpn_level_for_boxes, roi_align_rotated_3d
@@ -73,7 +75,7 @@ def sample_rois(cfg: RCNNConfig, proposals: torch.Tensor, prop_valid: torch.Tens
     jax.lax.top_k)."""
     b, r = proposals.shape[:2]
     if draws is None:
-        draws = torch.rand((b, r), generator=generator, device=proposals.device)
+        draws = batch_rand(generator, (b, r))
     to_aabb = obb2hbb_3d if cfg.rotated else (lambda x: x)
     iou = torch.stack([box_iou_aabb(p, g) for p, g in zip(to_aabb(proposals), to_aabb(gt_boxes))])
     iou = torch.where(gt_valid[:, None, :], iou, torch.full_like(iou, -1.0))  # [B, R, G]
@@ -130,13 +132,15 @@ class RCNNHead(nn.Module):
 
 
 def rcnn_loss(cfg: RCNNConfig, deltas: torch.Tensor, scores: torch.Tensor, rois: torch.Tensor,
-              labels: torch.Tensor, matched: torch.Tensor, sel_valid: torch.Tensor):
+              labels: torch.Tensor, matched: torch.Tensor, sel_valid: torch.Tensor,
+              count_sum: CountSum = one_rank):
     """Cross-entropy over the valid sampled RoIs plus smooth-L1 (beta 1/9)
     on the positives' deltas (reference: detector.py:580-627). RoIs or
     targets with a side <= 1e-3 are dropped, and replaced by a unit box
     before encoding: their log-size deltas would be NaN, which survives a
-    multiplication by a zero mask. Returns (total, {loss_cls, loss_reg,
-    num_pos})."""
+    multiplication by a zero mask. `count_sum` makes the valid and positive
+    counts global before their clamps. Returns (total, {loss_cls, loss_reg,
+    num_pos}), num_pos of the rows given."""
     with torch.no_grad():
         side = lambda x: x[..., 3:6] if cfg.rotated else x[..., 3:6] - x[..., 0:3]
         ok = sel_valid & (side(rois) > 1e-3).all(-1) & (side(matched) > 1e-3).all(-1)
@@ -146,12 +150,13 @@ def rcnn_loss(cfg: RCNNConfig, deltas: torch.Tensor, scores: torch.Tensor, rois:
     valid_f = ok.float()
     logp = F.log_softmax(scores, dim=-1)
     cls_nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    cls_loss = (cls_nll * valid_f).sum() / torch.clamp(valid_f.sum(), min=1.0)
     pos = (labels > 0).float() * valid_f
+    n_valid, n_pos = count_sum(torch.stack([valid_f.sum(), pos.sum()]))
+    cls_loss = (cls_nll * valid_f).sum() / torch.clamp(n_valid, min=1.0)
     d = (deltas - reg_targets).abs()
     beta = 1.0 / 9.0
     sl1 = torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta).sum(-1)
-    reg_loss = (sl1 * pos).sum() / torch.clamp(pos.sum(), min=1.0)
+    reg_loss = (sl1 * pos).sum() / torch.clamp(n_pos, min=1.0)
     return cls_loss + reg_loss, {"loss_cls": cls_loss, "loss_reg": reg_loss, "num_pos": pos.sum()}
 
 
@@ -205,11 +210,12 @@ class RCNNStage(nn.Module):
                 prop_valid: torch.Tensor, gt_boxes: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None, draws: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                training: bool = False):
+                training: bool = False, count_sum: CountSum = one_rank):
         """features: per level [B, W, L, H, C]. training: (loss, {loss_cls,
         loss_reg, num_pos}) over RoIs sampled with `draws` [B, R] or draws
-        from `generator`; else {boxes (refined), scores (best foreground
-        probability), valid} for every proposal."""
+        from `generator`, `count_sum` going to rcnn_loss; else {boxes
+        (refined), scores (best foreground probability), valid} for every
+        proposal."""
         cfg = self.cfg
         if not training:
             deltas, scores = self.scores(self.pool(features, proposals))
@@ -220,4 +226,4 @@ class RCNNStage(nn.Module):
         rois, labels, matched, sel_valid = self.sample(proposals, prop_valid, gt_boxes, gt_valid,
                                                        draws, generator)
         deltas, scores = self.scores(self.pool(features, rois))
-        return rcnn_loss(cfg, deltas, scores, rois, labels, matched, sel_valid)
+        return rcnn_loss(cfg, deltas, scores, rois, labels, matched, sel_valid, count_sum)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nerf_mae_torch.config import SwinConfig
+from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.backbones import init_body, make_body
 from nerf_mae_torch.models.unetr import Conv3d
 from nerf_mae_torch.ops.anchors import (
@@ -162,21 +163,24 @@ def rpn_assign_and_encode(cfg: RPNConfig, anchors: torch.Tensor, anchor_valid: t
 def rpn_loss(cfg: RPNConfig, objectness: torch.Tensor, pred_deltas: torch.Tensor,
              anchors: torch.Tensor, anchor_valid: torch.Tensor, gt_boxes: torch.Tensor,
              gt_valid: torch.Tensor, draws: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, count_sum: CountSum = one_rank):
     """Objectness BCE over a balanced sample and box regression on its
     positives (reference: rpn.py:372-456): smooth-L1 (beta 1/9) summed and
     divided by the number sampled, or an IoU loss on the decoded boxes; plus
     the 2D projection loss when proj2d_loss_weight > 0 (the reference
     weights it 0 by default, run_rpn.py:91). The sampler's uniform draws
-    [B, A] are `draws` or come from `generator`. Returns (objectness loss,
-    regression loss, {num_pos, num_sampled[, loss_reg_2d]})."""
+    [B, A] are `draws` or come from `generator`. `count_sum` makes the
+    sampled and positive counts global before their clamps. Returns
+    (objectness loss, regression loss, {num_pos, num_sampled[,
+    loss_reg_2d]}), the counts of the rows given."""
     labels, reg_targets, matched = rpn_assign_and_encode(cfg, anchors, anchor_valid, gt_boxes,
                                                          gt_valid)
     pos_mask, neg_mask = balanced_sample(labels, cfg.batch_size_per_mesh, cfg.positive_fraction,
                                          draws=draws, generator=generator)
     pos = pos_mask.float()
     sampled = (pos_mask | neg_mask).float()
-    n_sampled = torch.clamp(sampled.sum(), min=1.0)
+    total_sampled, total_pos = count_sum(torch.stack([sampled.sum(), pos.sum()]))
+    n_sampled = torch.clamp(total_sampled, min=1.0)
 
     if cfg.reg_loss_type == "smooth_l1":
         d = (pred_deltas - reg_targets).abs()
@@ -222,7 +226,7 @@ def rpn_loss(cfg: RPNConfig, objectness: torch.Tensor, pred_deltas: torch.Tensor
                     else decode_aabb_deltas(pred_deltas, anchors[None]))
         loss_2d = projection_2d_loss(unit_box_where(pos_mask, decoded2),
                                      unit_box_where(pos_mask, matched), pos, cfg.resolution)
-        loss_2d = loss_2d / torch.clamp(pos.sum(), min=1.0)  # / sampled positives, rpn.py:452
+        loss_2d = loss_2d / torch.clamp(total_pos, min=1.0)  # / sampled positives, rpn.py:452
         aux["loss_reg_2d"] = loss_2d
         reg_loss = reg_loss + cfg.proj2d_loss_weight * loss_2d
     return obj_loss, reg_loss, aux
@@ -345,18 +349,20 @@ class NeRFRPN(nn.Module):
                 deterministic: bool = True, training: bool = False,
                 droppath_generator: Optional[torch.Generator] = None,
                 sample_generator: Optional[torch.Generator] = None,
-                sample_draws: Optional[torch.Tensor] = None):
+                sample_draws: Optional[torch.Tensor] = None,
+                count_sum: CountSum = one_rank):
         """training: (objectness + reg_loss_weight * regression loss,
         {loss_objectness, loss_reg, num_pos, num_sampled}), the sampler's
         draws [B, A] from `sample_draws` or `sample_generator`; else the
         proposals (propose). A training forward (deterministic=False) draws
-        the stochastic-depth keep factors from `droppath_generator`."""
+        the stochastic-depth keep factors from `droppath_generator`.
+        `count_sum` goes to rpn_loss."""
         feats = self.body(grids, deterministic, droppath_generator)
         if not training:
             return self.propose(feats, sizes)
         anchors, valid = self.anchors(sizes)
         obj_loss, reg_loss, aux = rpn_loss(self.rpn, *self.head_outputs(feats), anchors, valid,
                                            gt_boxes, gt_valid, draws=sample_draws,
-                                           generator=sample_generator)
+                                           generator=sample_generator, count_sum=count_sum)
         total = obj_loss + self.rpn.reg_loss_weight * reg_loss
         return total, {"loss_objectness": obj_loss, "loss_reg": reg_loss, **aux}

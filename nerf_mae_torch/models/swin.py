@@ -37,6 +37,7 @@ from torch.utils.checkpoint import (
 )
 
 from nerf_mae_torch.config import SwinConfig
+from nerf_mae_torch.ops.draws import batch_rand
 from nerf_mae_torch.ops.fused_attention import (
     FusedWindowAttentionFn,
     fused_window_attention,
@@ -84,8 +85,9 @@ def drop_path(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 def droppath_keep(batch: int, rate: float,
                   generator: torch.Generator) -> torch.Tensor:
     """[B] float32 keep/(1-rate) factors drawn from `generator` (the same
-    draws feed the fused kernel and the plain path)."""
-    keep = torch.rand(batch, generator=generator, device=generator.device)
+    draws feed the fused kernel and the plain path); a BatchGenerator draws
+    them for the global batch and keeps its rows."""
+    keep = batch_rand(generator, (batch,))
     return (keep < 1.0 - rate).float() / (1.0 - rate)
 
 

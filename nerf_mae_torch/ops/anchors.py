@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from nerf_mae_torch.ops.boxes import box_iou_aabb
+from nerf_mae_torch.ops.draws import batch_rand
 
 DEFAULT_ANCHOR_SIZES = ((8.0,), (16.0,), (32.0,), (64.0,))
 DEFAULT_ASPECT_RATIOS = ((1, 1, 1), (1, 1, 2), (1, 2, 2), (1, 1, 3), (1, 3, 3))
@@ -146,7 +147,7 @@ def balanced_sample(labels: torch.Tensor, batch_size: int, positive_fraction: fl
     `draws` [..., A] in [0, 1), else drawn from `generator`. Returns
     (pos_mask, neg_mask) [..., A]."""
     if draws is None:
-        draws = torch.rand(labels.shape, generator=generator, device=labels.device)
+        draws = batch_rand(generator, labels.shape)
     pos, neg = labels == 1.0, labels == 0.0
     num_pos = torch.clamp(pos.sum(-1, keepdim=True), max=int(batch_size * positive_fraction))
     num_neg = torch.minimum(neg.sum(-1, keepdim=True), batch_size - num_pos)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from nerf_mae_torch.ops.draws import batch_rand
+
 
 def block_mask_3d(
     generator: torch.Generator,
@@ -31,8 +33,10 @@ def block_mask_3d(
     m = token_grid // block
     device = generator.device
     if strategy == "random":
-        shape = (batch, m, m, m) if per_sample else (1, m, m, m)
-        blocks = torch.rand(shape, generator=generator, device=device) < p_remove
+        if per_sample:  # a BatchGenerator draws the global batch, keeps its rows
+            blocks = batch_rand(generator, (batch, m, m, m)) < p_remove
+        else:
+            blocks = torch.rand((1, m, m, m), generator=generator, device=device) < p_remove
         blocks = blocks.expand(batch, m, m, m)
     elif strategy == "grid":
         n = m**3

@@ -18,6 +18,10 @@ front3d, hypersim and scannet read --features_path and --boxes_path (one
 --eval_interval. --mode benchmark times 20 prediction steps (forward and
 post-processing) after 3 warm-ups and prints one JSON line. --out_channels
 is parsed and unused, as in scripts/run_fcos.py: the detector is 256 wide.
+Under torchrun it trains data-parallel over the ranks, --batch_size global
+(common.build_mesh; --mesh_space is refused, as JAX's detection refuses
+it); the eval gathers every rank's detections before AP and recall, and
+rank 0 writes --output_proposals / --output_voxel_scores.
 """
 
 from __future__ import annotations
@@ -33,18 +37,20 @@ from nerf_mae_torch.common import (
     ListDataset,
     add_common_flags,
     benchmark_steps,
+    build_mesh,
+    eval_shards,
+    gather_rows,
     prepare_state,
     run,
     scene_datasets,
     setup_logging,
-    to_device,
     train_config,
 )
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig
 from nerf_mae_torch.data import detection_batch_iterator, synthetic_detection_scenes
 from nerf_mae_torch.eval.detection import detection_eval_summary
-from nerf_mae_torch.inference import resolve_device
 from nerf_mae_torch.models.fcos import FCOSConfig
+from nerf_mae_torch.parallel import is_main
 from nerf_mae_torch.train.det_trainer import DetectionTrainer
 
 log = logging.getLogger("nerf_mae_torch.run_fcos")
@@ -105,9 +111,10 @@ def build_datasets(args):
     return mk(args.n_synthetic, args.seed), mk(n_val, args.seed + 10_000)
 
 
-def batch_iter(ds, args):
+def batch_iter(ds, args, rank=0, world=1):
     return detection_batch_iterator(ds, args.batch_size, args.resolution, max_gt=args.max_gt,
-                                    seed=args.seed, workers=args.workers)
+                                    seed=args.seed, workers=args.workers, rank=rank,
+                                    world=world)
 
 
 def corpus_iter(ds, args):
@@ -124,7 +131,9 @@ def benchmark(args, trainer, state, batch):
     return benchmark_steps(
         args, trainer.device, lambda: trainer.predict_step(state, batch),
         f"predict_ms_fcos_{kind}_{args.backbone_type}_{args.resolution}",
-        summary=lambda det: {"detections_per_scene": float(det["valid"].sum()) / args.batch_size})
+        summary=lambda det: {"detections_per_scene": float(det["valid"].sum())
+                             / det["valid"].shape[0]},
+        mesh=trainer.mesh)
 
 
 def main(argv=None):
@@ -133,28 +142,34 @@ def main(argv=None):
     (benchmark), or {"steps", "history", "checkpoint_dir"} (train)."""
     args = parse_args(argv)
     setup_logging()
-    device = resolve_device(args.device)
+    with build_mesh(args, spatial_ok=False) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh):
     swin = SWIN_PRESETS.get(args.backbone_type, SWIN_PRESETS["swin_s"])
     fcos = fcos_config(args)
     train_ds, val_ds = build_datasets(args)
     total_steps = args.steps or max(len(train_ds) // args.batch_size, 1) * args.num_epochs
-    trainer = DetectionTrainer(swin, fcos, train_config(args), total_steps, device,
+    trainer = DetectionTrainer(swin, fcos, train_config(args), total_steps, mesh.device,
                                backbone=args.backbone_type, compute_dtype=args.compute_dtype,
                                remat=not args.no_remat,
-                               output_objectness=args.output_voxel_scores is not None)
+                               output_objectness=args.output_voxel_scores is not None,
+                               mesh=mesh)
     mae_cfg = MAEConfig(swin=swin, resolution=args.resolution, compute_dtype=args.compute_dtype)
     state = prepare_state(args, trainer, mae_cfg)
+    write = is_main(mesh)
 
     def run_eval(state):
         t0 = time.perf_counter()
         props, scores, gts = [], [], []
-        for batch in detection_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
-                                              args.resolution, max_gt=args.max_gt,
-                                              shuffle=False, loop=False, drop_last=False):
-            det = trainer.predict_step(state, to_device(batch, device))
-            det = {k: v.cpu().numpy() for k, v in det.items()}
+        batches = detection_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
+                                           args.resolution, max_gt=args.max_gt,
+                                           shuffle=False, loop=False, drop_last=False)
+        for batch, rows in eval_shards(batches, mesh):
+            det = gather_rows(trainer.predict_step(state, rows), mesh)
             for i in range(batch["grids"].shape[0]):
-                if args.output_voxel_scores:
+                if args.output_voxel_scores and write:
                     os.makedirs(args.output_voxel_scores, exist_ok=True)
                     dump = {}
                     for lvl, s in enumerate(fcos.strides):
@@ -171,7 +186,7 @@ def main(argv=None):
                 props.append(boxes)
                 scores.append(det["scores"][i][keep])
                 gts.append(batch["gt_boxes"][i][batch["gt_valid"][i]])
-                if args.output_proposals:
+                if args.output_proposals and write:
                     os.makedirs(args.output_proposals, exist_ok=True)
                     np.savez_compressed(
                         os.path.join(args.output_proposals, f"scene_{len(props) - 1}.npz"),

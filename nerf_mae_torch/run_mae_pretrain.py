@@ -24,6 +24,18 @@ times 20 synchronized train steps after one warm-up step on one batch
 memory, device); a batch that fails to run (out of memory, say) is not
 retried at a smaller size. --log_dir writes the metrics as jsonl (and
 --wandb forwards them where wandb can be imported).
+
+Data parallelism: under torchrun the step runs on the process group's ranks
+(NCCL on cards, one a rank), --batch_size being the global batch:
+
+    torchrun --nproc_per_node 8 -m nerf_mae_torch.run_mae_pretrain \
+        --dataset synthetic --backbone_type swin_b --batch_size 64 --steps 100
+
+Each rank loads its rows of every batch, the step gives what one process
+gives on the whole batch (trainer.py), and rank 0 alone writes checkpoints,
+the metric log, --eval_json, the trace and the benchmark's line (with the
+world size, the per-rank batch and the global grids/s). --mesh_space > 1
+(the grid sharding) is not in the port yet.
 """
 
 from __future__ import annotations
@@ -40,11 +52,18 @@ import torch
 from nerf_mae_torch.common import (
     ListDataset,
     add_feed_flags,
+    add_mesh_flags,
+    build_mesh,
+    eval_shards,
     make_train_batches,
     maybe_profile,
+    mesh_fields,
+    metric_logger,
+    profile_dir,
     profiled_steps,
+    save_on_main,
     scene_datasets,
-    to_device,
+    write_eval_json,
 )
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
 from nerf_mae_torch.data import (
@@ -53,10 +72,9 @@ from nerf_mae_torch.data import (
     synthetic_scenes,
 )
 from nerf_mae_torch.flops import train_mfu
-from nerf_mae_torch.inference import resolve_device
-from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_mae_torch.parallel import is_main
+from nerf_mae_torch.train.checkpoint import restore_checkpoint
 from nerf_mae_torch.train.trainer import MAETrainer
-from nerf_mae_torch.utils import MetricLogger
 
 log = logging.getLogger("nerf_mae_torch.run_mae_pretrain")
 
@@ -105,6 +123,7 @@ def parse_args(argv=None):
                         "--synthetic_hard for e2e pretrain->finetune)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     add_feed_flags(p)
+    add_mesh_flags(p)
     return p.parse_args(argv)
 
 
@@ -142,7 +161,12 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    device = resolve_device(args.device)
+    with build_mesh(args) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh):
+    device = mesh.device
     mae_cfg = MAEConfig(
         swin=SWIN_PRESETS[args.backbone_type],
         resolution=args.resolution,
@@ -161,7 +185,7 @@ def main(argv=None):
     )
     log.info("device: %s", torch.cuda.get_device_name(device)
              if device.type == "cuda" else "cpu")
-    trainer = MAETrainer(mae_cfg, train_cfg, total_steps, device)
+    trainer = MAETrainer(mae_cfg, train_cfg, total_steps, device, mesh)
     state = trainer.init(args.seed)
     if args.checkpoint:
         restored = restore_checkpoint(args.checkpoint)
@@ -177,26 +201,25 @@ def main(argv=None):
         it = mae_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
                                 args.resolution, shuffle=False, loop=False,
                                 drop_last=False, patch_major=pm)
-        ms = [{k: float(v) for k, v in trainer.eval_step(state, to_device(b, device)).items()}
-              for b in it]
+        ms = [{k: float(v) for k, v in trainer.eval_step(state, b).items()}
+              for _, b in eval_shards(it, mesh)]
         agg = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]} if ms else {}
         log.info("eval: %s", agg)
         return agg
 
     if args.mode == "eval":
         agg = run_eval(state)
-        if args.eval_json:
-            with open(args.eval_json, "w") as f:
-                json.dump(agg, f)
+        write_eval_json(args, mesh, agg)
         return agg
 
     batches = make_train_batches(
         args, device,
         lambda: mae_batch_iterator(train_ds, args.batch_size, args.resolution, seed=args.seed,
-                                   workers=args.workers, patch_major=pm),
+                                   workers=args.workers, patch_major=pm, rank=mesh.rank,
+                                   world=mesh.world_size),
         corpus_iter_factory=lambda: mae_batch_iterator(
             train_ds, args.batch_size, args.resolution, shuffle=False, loop=False,
-            drop_last=False, workers=args.workers, patch_major=pm))
+            drop_last=False, workers=args.workers, patch_major=pm), mesh=mesh)
     if args.mode == "benchmark":
         batch = next(batches)
         batches.close()  # no feed work under the timed steps
@@ -209,13 +232,14 @@ def main(argv=None):
 
 
 def train(args, trainer, state, batches, run_eval, val_ds, total_steps, keep, device):
-    """The train loop: log, eval and keep the best-PSNR checkpoint, save."""
-    mlog = MetricLogger(args.log_dir, use_wandb=args.wandb,
-                        run_name=f"mae_{args.backbone_type}", config=vars(args))
+    """The train loop: log, eval and keep the best-PSNR checkpoint, save
+    (rank 0 writes, the metrics are the global batch's on every rank)."""
+    mesh = trainer.mesh
+    mlog = metric_logger(args, mesh, f"mae_{args.backbone_type}")
     history = []
     best_psnr = -1.0
     t0 = time.time()
-    for step in profiled_steps(args, device, range(state.step + 1, total_steps + 1)):
+    for step in profiled_steps(args, device, range(state.step + 1, total_steps + 1), mesh):
         state, metrics = trainer.train_step(state, next(batches))
         if step % args.log_interval == 0:
             m = {k: float(v) for k, v in metrics.items()}
@@ -230,17 +254,14 @@ def train(args, trainer, state, batches, run_eval, val_ds, total_steps, keep, de
             agg = run_eval(state)
             if agg:
                 mlog.log(step, {f"val_{k}": v for k, v in agg.items()})
-            if agg.get("psnr", -1) > best_psnr:
+            if agg.get("psnr", -1) > best_psnr:  # the same on every rank
                 best_psnr = agg["psnr"]
-                save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
-                                state.optimizer.state_dict(),
-                                extra={"psnr": best_psnr}, keep=keep)
+                save_on_main(mesh, args.checkpoint_dir, step, state,
+                             extra={"psnr": best_psnr}, keep=keep)
                 log.info("saved best-PSNR ckpt (%.3f) at step %d", best_psnr, step)
         elif step % args.ckpt_interval == 0:
-            save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
-                            state.optimizer.state_dict(), keep=keep)
-    save_checkpoint(args.checkpoint_dir, state.step, state.model.state_dict(),
-                    state.optimizer.state_dict(), keep=keep)
+            save_on_main(mesh, args.checkpoint_dir, step, state, keep=keep)
+    save_on_main(mesh, args.checkpoint_dir, state.step, state, keep=keep)
     mlog.close()
     log.info("done: %d steps", state.step)
     return {"steps": state.step, "history": history,
@@ -254,38 +275,44 @@ def _sync(device):
 
 def benchmark(args, trainer, state, batch, mae_cfg, device):
     """One warm-up step, then 20 synchronized steps on `batch` (traced to
-    --profile_dir when set)."""
+    --profile_dir when set); rank 0 prints the line, grids/s of the global
+    batch."""
     state, _ = trainer.train_step(state, batch)
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
-    with maybe_profile(args.profile_dir, device, "mae_train_step"):
+    with maybe_profile(profile_dir(args, trainer.mesh), device, "mae_train_step"):
         for _ in range(20):
             t = time.perf_counter()
             state, m = trainer.train_step(state, batch)
             _sync(device)
             times.append(time.perf_counter() - t)
     step_ms = float(np.mean(times) * 1e3)
-    grids_per_sec = args.batch_size / (step_ms / 1e3)
+    grids_per_sec = args.batch_size / (step_ms / 1e3)  # the global batch
+    ranks = mesh_fields(args, trainer.mesh)
+    per_device = grids_per_sec / ranks["world_size"]
     slug = device_slug(device)
     out = {
         "metric": f"grids_per_sec_per_{slug}_{args.backbone_type.replace('_', '')}"
                   f"_mae3d_{args.resolution}",
-        "value": grids_per_sec,
+        "value": per_device,
         "unit": "grids/s/device",
         "step_ms": step_ms,
         "step_ms_std": float(np.std(times) * 1e3),
         "batch_size": args.batch_size,
+        **ranks,
+        "grids_per_sec": grids_per_sec,
         # MFU only against a card's peak; a CPU run has no device metric
-        "mfu": train_mfu(grids_per_sec, mae_cfg) if slug == "h100" else None,
+        "mfu": train_mfu(per_device, mae_cfg) if slug == "h100" else None,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "loss": float(m["loss"]),
         "phase": "done",
     }
-    print(json.dumps(out), flush=True)
+    if is_main(trainer.mesh):
+        print(json.dumps(out), flush=True)
     return out
 
 

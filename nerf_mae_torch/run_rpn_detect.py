@@ -18,13 +18,14 @@ common.overlap_batches (--workers, --prefetch, --transfer_dtype; no
 --device_data, as in JAX); eval reports recall, AR
 and AP25/50/75 of its refined boxes at 300 (eval/detection.py), from
 --checkpoint when given. --roi_path is parsed and unused, as in
-scripts/run_rpn_detect.py.
+scripts/run_rpn_detect.py. Under torchrun it trains data-parallel over the
+ranks, --batch_size global (common.build_mesh): each rank runs the frozen
+RPN on its scenes and the RCNN's sampling counts are the global batch's.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import logging
 import re
 import time
@@ -34,22 +35,25 @@ import torch
 from nerf_mae_torch.common import (
     ListDataset,
     add_common_flags,
+    build_mesh,
+    eval_shards,
+    gather_rows,
+    metric_logger,
     overlap_batches,
     profiled_steps,
+    save_on_main,
     scene_datasets,
     setup_logging,
-    to_device,
     train_config,
+    write_eval_json,
 )
 from nerf_mae_torch.config import SWIN_PRESETS, TrainConfig
 from nerf_mae_torch.data import detection_batch_iterator, synthetic_detection_scenes
 from nerf_mae_torch.eval.detection import detection_eval_summary
-from nerf_mae_torch.inference import resolve_device
 from nerf_mae_torch.models.rcnn import RCNNConfig
 from nerf_mae_torch.models.rpn import RPNConfig
-from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_mae_torch.train.checkpoint import restore_checkpoint
 from nerf_mae_torch.train.rpn_trainer import RCNNTrainer, RPNTrainer
-from nerf_mae_torch.utils import MetricLogger
 
 log = logging.getLogger("nerf_mae_torch.run_rpn_detect")
 
@@ -85,11 +89,12 @@ def rcnn_config(args) -> RCNNConfig:
                       output_size=args.roi_output_size, rotated=args.rotated_bbox)
 
 
-def frozen_rpn(args, device):
+def frozen_rpn(args, device, mesh=None):
     """The first stage's TrainState, in eval mode: the RPN of
     --rpn_checkpoint with as many head convs as the checkpoint holds
     (load_state_dict is strict, so any other mismatch raises), or random
-    weights from --seed at the JAX driver's depth 1 without one."""
+    weights from --seed at the JAX driver's depth 1 without one; on a mesh,
+    replicated from rank 0."""
     params = restore_checkpoint(args.rpn_checkpoint)["params"] if args.rpn_checkpoint else {}
     depth = sum(1 for k in params if re.fullmatch(r"head\.conv\d+\.weight", k)) or 1
     rpn = RPNConfig(resolution=args.resolution, rotated_bbox=args.rotated_bbox,
@@ -98,7 +103,7 @@ def frozen_rpn(args, device):
     trainer = RPNTrainer(SWIN_PRESETS.get(args.backbone_type, SWIN_PRESETS["swin_s"]), rpn,
                          TrainConfig(batch_size=args.batch_size), 10, device,
                          backbone=args.backbone_type, compute_dtype=args.compute_dtype,
-                         remat=not args.no_remat)
+                         remat=not args.no_remat, mesh=mesh)
     state = trainer.init(args.seed)
     if params:
         state.model.load_state_dict(params)
@@ -129,11 +134,17 @@ def main(argv=None):
     (train)."""
     args = parse_args(argv)
     setup_logging()
-    device = resolve_device(args.device)
-    rpn_state = frozen_rpn(args, device)
+    with build_mesh(args, spatial_ok=False) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh):
+    device = mesh.device
+    rpn_state = frozen_rpn(args, device, mesh)
     train_ds, val_ds = build_datasets(args)
     total_steps = args.steps or max(len(train_ds) // args.batch_size, 1) * args.num_epochs
-    trainer = RCNNTrainer(rcnn_config(args), train_config(args), total_steps, device)
+    trainer = RCNNTrainer(rcnn_config(args), train_config(args), total_steps, device,
+                          mesh=mesh)
     state = trainer.init(args.seed)
     if args.checkpoint:
         restored = restore_checkpoint(args.checkpoint)
@@ -146,11 +157,12 @@ def main(argv=None):
     if args.mode == "eval":
         t0 = time.perf_counter()
         props, scores, gts = [], [], []
-        for batch in detection_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
-                                              args.resolution, max_gt=args.max_gt,
-                                              shuffle=False, loop=False, drop_last=False):
-            feats, det = features_and_proposals(rpn_state, to_device(batch, device))
-            out = {k: v.cpu().numpy() for k, v in trainer.predict_step(state, feats, det).items()}
+        batches = detection_batch_iterator(val_ds, min(args.batch_size, len(val_ds)),
+                                           args.resolution, max_gt=args.max_gt,
+                                           shuffle=False, loop=False, drop_last=False)
+        for batch, rows in eval_shards(batches, mesh):
+            feats, det = features_and_proposals(rpn_state, rows)
+            out = gather_rows(trainer.predict_step(state, feats, det), mesh)
             for i in range(batch["grids"].shape[0]):
                 keep = out["valid"][i]
                 props.append(out["boxes"][i][keep])
@@ -159,21 +171,20 @@ def main(argv=None):
         agg = detection_eval_summary(props, scores, gts, top_n=(300,)) if props else {}
         log.info("eval of %d scenes in %.1f ms: %s", len(props),
                  (time.perf_counter() - t0) * 1e3, agg)
-        if args.eval_json:
-            with open(args.eval_json, "w") as f:
-                json.dump(agg, f)
+        write_eval_json(args, mesh, agg)
         return agg
 
     batches = overlap_batches(
         detection_batch_iterator(train_ds, args.batch_size, args.resolution,
-                                 max_gt=args.max_gt, seed=args.seed, workers=args.workers),
+                                 max_gt=args.max_gt, seed=args.seed, workers=args.workers,
+                                 rank=mesh.rank, world=mesh.world_size),
         device, args.prefetch, transfer_dtype=args.transfer_dtype)
-    mlog = MetricLogger(args.log_dir, use_wandb=args.wandb,
-                        run_name=f"rcnn_{args.backbone_type}", config=vars(args))
+    mlog = metric_logger(args, mesh, f"rcnn_{args.backbone_type}")
     history = []
     t0 = time.time()
     try:
-        for step in profiled_steps(args, device, range(state.step + 1, total_steps + 1)):
+        for step in profiled_steps(args, device, range(state.step + 1, total_steps + 1),
+                                   mesh):
             batch = next(batches)
             feats, det = features_and_proposals(rpn_state, batch)
             state, metrics = trainer.train_step(state, feats, det, batch)
@@ -187,8 +198,7 @@ def main(argv=None):
                 history.append({"step": step, **m, "grids_per_sec": rate})
                 t0 = time.time()
             if step % args.ckpt_interval == 0 or step == total_steps:
-                save_checkpoint(args.checkpoint_dir, step, state.model.state_dict(),
-                                state.optimizer.state_dict())
+                save_on_main(mesh, args.checkpoint_dir, step, state)
     finally:
         batches.close()
         mlog.close()

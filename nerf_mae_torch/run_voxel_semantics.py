@@ -13,7 +13,9 @@ eval reports mIoU / mAcc / allAcc from the hard confusion counts.
 --dataset synthetic draws blob scenes whose colour band encodes the class;
 front3d, hypersim and scannet read --features_path and --sem_feat_path.
 --mode benchmark times 20 eval steps after 3 warm-up steps and prints one
-JSON line.
+JSON line. Under torchrun it trains data-parallel over the ranks,
+--batch_size global (common.build_mesh); the eval's confusion counts are
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -23,20 +25,23 @@ import logging
 
 import numpy as np
 
+import torch
+
 from nerf_mae_torch.common import (
     ListDataset,
     add_common_flags,
+    build_mesh,
+    eval_shards,
     mae_config,
     prepare_state,
     run,
     scene_datasets,
     setup_logging,
-    to_device,
     train_config,
 )
 from nerf_mae_torch.data import pad_to_cube
-from nerf_mae_torch.inference import resolve_device
 from nerf_mae_torch.models.heads import intersection_and_union
+from nerf_mae_torch.parallel import all_reduce_sum, batch_rows
 from nerf_mae_torch.train.head_trainer import VoxelSemanticsTrainer
 
 log = logging.getLogger("nerf_mae_torch.run_voxel_semantics")
@@ -53,19 +58,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def batch_iter(ds, args, shuffle=True, loop=True):
+def batch_iter(ds, args, shuffle=True, loop=True, rank=0, world=1):
     """{"grids": [B, R, R, R, 4] float32, "semantics": [B, R, R, R] int32}
-    batches of min(batch_size, len(ds)) scenes, ragged tail dropped."""
+    batches of min(batch_size, len(ds)) scenes, ragged tail dropped;
+    world > 1: rank's rows of each."""
     rng = np.random.RandomState(args.seed)
     n = len(ds)
     bs = min(args.batch_size, n)
+    own = batch_rows(bs, rank, world)
     r = args.resolution
     while True:
         order = rng.permutation(n) if shuffle else np.arange(n)
         for s in range(0, n - bs + 1, bs):
-            grids = np.zeros((bs, r, r, r, 4), np.float32)
-            sems = np.zeros((bs, r, r, r), np.int32)
-            for i, j in enumerate(order[s: s + bs]):
+            sel = order[s: s + bs][own]
+            grids = np.zeros((len(sel), r, r, r, 4), np.float32)
+            sems = np.zeros((len(sel), r, r, r), np.int32)
+            for i, j in enumerate(sel):
                 item = ds[int(j)]
                 grids[i], _ = pad_to_cube(item["rgbsigma"], r)
                 sem = item["semantics"][:r, :r, :r]
@@ -114,29 +122,38 @@ def main(argv=None):
     "checkpoint_dir"} (train)."""
     args = parse_args(argv)
     setup_logging()
-    device = resolve_device(args.device)
+    with build_mesh(args) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh):
     mae_cfg = mae_config(args)
     weights = np.load(args.class_weights) if args.class_weights else None
     train_ds, val_ds = build_datasets(args)
     total_steps = args.steps or max(len(train_ds) // args.batch_size, 1) * args.num_epochs
-    trainer = VoxelSemanticsTrainer(mae_cfg, train_config(args), total_steps, device,
-                                    num_classes=args.num_classes, class_weights=weights)
+    trainer = VoxelSemanticsTrainer(mae_cfg, train_config(args), total_steps, mesh.device,
+                                    num_classes=args.num_classes, class_weights=weights,
+                                    mesh=mesh)
     state = prepare_state(args, trainer, mae_cfg)
 
     def run_eval(state):
         c = args.num_classes
         inter, union, tgt = np.zeros(c), np.zeros(c), np.zeros(c)
         losses = []
-        for batch in batch_iter(val_ds, args, shuffle=False, loop=False):
-            m = trainer.eval_step(state, to_device(batch, device))
+        for batch, rows in eval_shards(batch_iter(val_ds, args, shuffle=False, loop=False),
+                                       mesh):
+            m = trainer.eval_step(state, rows)
             losses.append(float(m["loss"]))
             i, u, t = intersection_and_union(m["pred_labels"].cpu().numpy(),
-                                             batch["semantics"], c)
+                                             rows["semantics"].cpu().numpy(), c)
             inter += i
             union += u
             tgt += t
         if not losses:
             return {}
+        # the confusion counts of every rank's rows
+        inter, union, tgt = (v.cpu().numpy() for v in all_reduce_sum(
+            [torch.as_tensor(v, device=mesh.device) for v in (inter, union, tgt)], mesh))
         present = tgt > 0
         iou = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
         acc = np.where(tgt > 0, inter / np.maximum(tgt, 1), 0.0)

@@ -11,7 +11,9 @@ input as their strided subsample; front3d, hypersim and scannet read
 --features_path (inputs) and --out_feat_path (high-resolution targets).
 --mae_checkpoint grafts a pretrained MAE's trunk and decoder4/3/2 (the
 "_Pretrained_Skip" variant). --mode benchmark times 20 eval steps on one
-training batch after 3 warm-up steps and prints one JSON line.
+training batch after 3 warm-up steps and prints one JSON line. Under
+torchrun it trains data-parallel over the ranks, --batch_size global
+(common.build_mesh).
 """
 
 from __future__ import annotations
@@ -24,16 +26,17 @@ import numpy as np
 from nerf_mae_torch.common import (
     ListDataset,
     add_common_flags,
+    build_mesh,
+    eval_shards,
     mae_config,
     prepare_state,
     run,
     scene_datasets,
     setup_logging,
-    to_device,
     train_config,
 )
 from nerf_mae_torch.data import pad_to_cube, synthetic_scenes
-from nerf_mae_torch.inference import resolve_device
+from nerf_mae_torch.parallel import batch_rows
 from nerf_mae_torch.train.head_trainer import VoxelSRTrainer
 
 log = logging.getLogger("nerf_mae_torch.run_voxel_sr")
@@ -49,19 +52,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def batch_iter(ds, args, shuffle=True, loop=True):
+def batch_iter(ds, args, shuffle=True, loop=True, rank=0, world=1):
     """{"grids": [B, R, R, R, 4], "out_grids": [B, R_out, R_out, R_out, 4]}
-    float32 batches of min(batch_size, len(ds)) scenes, ragged tail dropped."""
+    float32 batches of min(batch_size, len(ds)) scenes, ragged tail dropped;
+    world > 1: rank's rows of each."""
     rng = np.random.RandomState(args.seed)
     n = len(ds)
     bs = min(args.batch_size, n)
+    own = batch_rows(bs, rank, world)
     r, ro = args.resolution, args.out_resolution
     while True:
         order = rng.permutation(n) if shuffle else np.arange(n)
         for s in range(0, n - bs + 1, bs):
-            grids = np.zeros((bs, r, r, r, 4), np.float32)
-            outs = np.zeros((bs, ro, ro, ro, 4), np.float32)
-            for i, j in enumerate(order[s: s + bs]):
+            sel = order[s: s + bs][own]
+            grids = np.zeros((len(sel), r, r, r, 4), np.float32)
+            outs = np.zeros((len(sel), ro, ro, ro, 4), np.float32)
+            for i, j in enumerate(sel):
                 item = ds[int(j)]
                 grids[i], _ = pad_to_cube(item["rgbsigma"], r)
                 outs[i], _ = pad_to_cube(item["out_rgbsigma"], ro)
@@ -91,17 +97,22 @@ def main(argv=None):
     (benchmark), or {"steps", "history", "checkpoint_dir"} (train)."""
     args = parse_args(argv)
     setup_logging()
-    device = resolve_device(args.device)
+    with build_mesh(args) as mesh:
+        return _main(args, mesh)
+
+
+def _main(args, mesh):
     mae_cfg = mae_config(args)
     train_ds, val_ds = build_datasets(args)
     total_steps = args.steps or max(len(train_ds) // args.batch_size, 1) * args.num_epochs
-    trainer = VoxelSRTrainer(mae_cfg, train_config(args), total_steps, device,
-                             out_resolution=args.out_resolution)
+    trainer = VoxelSRTrainer(mae_cfg, train_config(args), total_steps, mesh.device,
+                             out_resolution=args.out_resolution, mesh=mesh)
     state = prepare_state(args, trainer, mae_cfg)
 
     def run_eval(state):
-        ms = [{k: float(v) for k, v in trainer.eval_step(state, to_device(b, device)).items()}
-              for b in batch_iter(val_ds, args, shuffle=False, loop=False)]
+        ms = [{k: float(v) for k, v in trainer.eval_step(state, b).items()}
+              for _, b in eval_shards(batch_iter(val_ds, args, shuffle=False, loop=False),
+                                      mesh)]
         out = {k: float(np.mean([m[k] for m in ms])) for k in ms[0]} if ms else {}
         log.info("eval: %s", out)
         return out

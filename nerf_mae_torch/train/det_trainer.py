@@ -1,5 +1,5 @@
 """Detection trainer for FCOSDetector (counterpart of
-nerf_mae_tpu/train/det_trainer.py, without its mesh).
+nerf_mae_tpu/train/det_trainer.py, with its data mesh).
 
     trainer = DetectionTrainer(swin, fcos, train_cfg, total_steps, "cuda")
     state = trainer.init(seed=0)
@@ -10,7 +10,9 @@ nerf_mae_tpu/train/det_trainer.py, without its mesh).
 The reference's recipe (reference: nerf_rpn/run_fcos_pretrained.py:
 310-1014): loss = cls + reg + centerness, AdamW + OneCycle + the clip with
 its non-finite guard (train/optim.py, shared with the MAE trainer).
-Stochastic depth is drawn from a generator seeded by (seed, step). Batches
+Stochastic depth is drawn from a generator seeded by (seed, step). On a
+data-parallel mesh, as Trainer describes: num_pos and the centerness sum
+are the global batch's. Batches
 are tensors on the trainer's device: {"grids": [B, R, R, R, 4], "sizes":
 [B, 3], "gt_boxes": [B, G, 6|7], "gt_valid": [B, G]}. The detector is 256
 wide: the JAX trainer passes no width on either.
@@ -18,13 +20,14 @@ wide: the JAX trainer passes no width on either.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from nerf_mae_torch.config import SwinConfig, TrainConfig
 from nerf_mae_torch.models.detector import FCOSDetector
 from nerf_mae_torch.models.fcos import FCOSConfig
+from nerf_mae_torch.parallel.mesh import DataMesh
 from nerf_mae_torch.train.checkpoint import extract_trunk, load_trunk_into
 from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
 
@@ -33,8 +36,8 @@ class DetectionTrainer(Trainer):
     def __init__(self, swin: SwinConfig, fcos: FCOSConfig, train_cfg: TrainConfig,
                  total_steps: int, device="cuda", backbone: str = "swin_s",
                  compute_dtype: str = "bfloat16", remat: bool = True,
-                 output_objectness: bool = False):
-        super().__init__(None, train_cfg, total_steps, device)
+                 output_objectness: bool = False, mesh: Optional[DataMesh] = None):
+        super().__init__(None, train_cfg, total_steps, device, mesh)
         self.swin, self.fcos, self.backbone = swin, fcos, backbone
         self.dtype = getattr(torch, compute_dtype)
         self.remat, self.output_objectness = remat, output_objectness
@@ -63,12 +66,15 @@ class DetectionTrainer(Trainer):
         (before clipping)."""
         model = state.model
         model.train()
+        b = batch["grids"].shape[0]
         loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"], batch["gt_valid"],
                           deterministic=False, training=True,
-                          droppath_generator=self._generator(state.seed, state.step, _DROPPATH))
+                          droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
+                                                             b),
+                          count_sum=self.count_sum)
         grad_norm = self._update(state, loss)
         metrics = {k: v.detach() for k, v in aux.items()}
-        return state, {**metrics, "loss": loss.detach(), "grad_norm": grad_norm}
+        return state, self._global({**metrics, "loss": loss.detach(), "grad_norm": grad_norm})
 
     @torch.no_grad()
     def predict_step(self, state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:

@@ -1,6 +1,6 @@
 """Trainers for the dense downstream heads, VoxelSR and VoxelSemantics
-(counterpart of nerf_mae_tpu/train/head_trainer.py, without its mesh and
-spatial sharding).
+(counterpart of nerf_mae_tpu/train/head_trainer.py, with its data mesh and
+without its spatial sharding).
 
     trainer = VoxelSRTrainer(mae_cfg, train_cfg, total_steps, "cuda",
                              out_resolution=256)
@@ -12,7 +12,9 @@ spatial sharding).
 A train step runs the head's training forward (stochastic depth drawn from
 a generator seeded by (seed, step), as MAETrainer seeds its own), the loss,
 the backward, the clip with its non-finite guard and an AdamW update at the
-scheduled lr. Batches are tensors on the trainer's device: {"grids":
+scheduled lr; on a data-parallel mesh, as Trainer describes (the draws of
+the global batch, global counts, summed gradients, global metrics).
+Batches are tensors on the trainer's device: {"grids":
 [B, R, R, R, 4], "out_grids": [B, R_out, R_out, R_out, 4]} for SR, {"grids",
 "semantics": [B, R, R, R] int labels, 0 = void} for semantics.
 """
@@ -31,6 +33,7 @@ from nerf_mae_torch.models.heads import (
     voxel_semantics_loss,
     voxel_sr_loss,
 )
+from nerf_mae_torch.parallel.mesh import DataMesh
 from nerf_mae_torch.train.checkpoint import graft_mae
 from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
 
@@ -54,10 +57,11 @@ class _DenseHeadTrainer(Trainer):
         model = state.model
         model.train()
         out = model(batch["grids"], False,
-                    droppath_generator=self._generator(state.seed, state.step, _DROPPATH))
+                    droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
+                                                       batch["grids"].shape[0]))
         loss, aux = self._loss(out, batch)
         grad_norm = self._update(state, loss)
-        return state, {"loss": loss.detach(), **aux, "grad_norm": grad_norm}
+        return state, self._global({"loss": loss.detach(), **aux, "grad_norm": grad_norm})
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
@@ -65,7 +69,7 @@ class _DenseHeadTrainer(Trainer):
         model.eval()
         out = model(batch["grids"], True)
         loss, aux = self._loss(out, batch)
-        return {"loss": loss, **aux, **self._eval_extra(out)}
+        return self._global({"loss": loss, **aux, **self._eval_extra(out)})
 
     def _eval_extra(self, out: torch.Tensor) -> Dict:
         return {}
@@ -73,15 +77,15 @@ class _DenseHeadTrainer(Trainer):
 
 class VoxelSRTrainer(_DenseHeadTrainer):
     def __init__(self, mae_cfg: MAEConfig, train_cfg: TrainConfig, total_steps: int,
-                 device="cuda", out_resolution: int = 256):
-        super().__init__(mae_cfg, train_cfg, total_steps, device)
+                 device="cuda", out_resolution: int = 256, mesh: Optional[DataMesh] = None):
+        super().__init__(mae_cfg, train_cfg, total_steps, device, mesh)
         self.out_resolution = out_resolution
 
     def _build_model(self) -> VoxelSR3D:
         return VoxelSR3D(self.mae_cfg, self.out_resolution, device=self.device)
 
     def _loss(self, out, batch):
-        return voxel_sr_loss(out, batch["out_grids"])
+        return voxel_sr_loss(out, batch["out_grids"], self.count_sum)
 
 
 class VoxelSemanticsTrainer(_DenseHeadTrainer):
@@ -89,8 +93,8 @@ class VoxelSemanticsTrainer(_DenseHeadTrainer):
 
     def __init__(self, mae_cfg: MAEConfig, train_cfg: TrainConfig, total_steps: int,
                  device="cuda", num_classes: int = 19,
-                 class_weights: Optional[np.ndarray] = None):
-        super().__init__(mae_cfg, train_cfg, total_steps, device)
+                 class_weights: Optional[np.ndarray] = None, mesh: Optional[DataMesh] = None):
+        super().__init__(mae_cfg, train_cfg, total_steps, device, mesh)
         self.num_classes = num_classes
         self.class_weights = (None if class_weights is None else
                               torch.as_tensor(np.asarray(class_weights, np.float32),
@@ -100,7 +104,8 @@ class VoxelSemanticsTrainer(_DenseHeadTrainer):
         return VoxelSemantics3D(self.mae_cfg, self.num_classes, device=self.device)
 
     def _loss(self, out, batch):
-        return voxel_semantics_loss(out, batch["semantics"], self.class_weights)
+        return voxel_semantics_loss(out, batch["semantics"], self.class_weights,
+                                    self.count_sum)
 
     def _eval_extra(self, out):
         return {"pred_labels": out.argmax(-1)}

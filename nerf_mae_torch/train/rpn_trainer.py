@@ -1,5 +1,5 @@
 """Trainers of the anchor RPN and of the RCNN second stage (counterpart of
-nerf_mae_tpu/train/rpn_trainer.py, without its mesh, and of the RCNN step
+nerf_mae_tpu/train/rpn_trainer.py, with its data mesh, and of the RCNN step
 in scripts/run_rpn_detect.py).
 
     trainer = RPNTrainer(swin, rpn, train_cfg, total_steps, "cuda")
@@ -14,7 +14,10 @@ in scripts/run_rpn_detect.py).
 
 AdamW + OneCycle + the clip with its non-finite guard (train/optim.py, as
 the other trainers). Stochastic depth and the samplers' draws come from
-generators seeded by (seed, step). Batches are tensors on the trainer's
+generators seeded by (seed, step). On a data-parallel mesh, as Trainer
+describes: the matcher and the samplers stay per scene, their draws are
+made for the global batch and sliced, and the losses' counts are the
+global batch's. Batches are tensors on the trainer's
 device: {"grids": [B, R, R, R, 4], "sizes": [B, 3], "gt_boxes": [B, G,
 6|7], "gt_valid": [B, G]}.
 """
@@ -28,6 +31,7 @@ import torch
 from nerf_mae_torch.config import SwinConfig, TrainConfig
 from nerf_mae_torch.models.rcnn import RCNNConfig, RCNNStage
 from nerf_mae_torch.models.rpn import NeRFRPN, RPNConfig
+from nerf_mae_torch.parallel.mesh import DataMesh
 from nerf_mae_torch.train.det_trainer import DetectionTrainer
 from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
 
@@ -37,8 +41,9 @@ _SAMPLE = 2  # the generator stream of a step's sampler draws
 class RPNTrainer(Trainer):
     def __init__(self, swin: SwinConfig, rpn: RPNConfig, train_cfg: TrainConfig,
                  total_steps: int, device="cuda", backbone: str = "swin_s",
-                 compute_dtype: str = "bfloat16", remat: bool = True):
-        super().__init__(None, train_cfg, total_steps, device)
+                 compute_dtype: str = "bfloat16", remat: bool = True,
+                 mesh: Optional[DataMesh] = None):
+        super().__init__(None, train_cfg, total_steps, device, mesh)
         self.swin, self.rpn, self.backbone = swin, rpn, backbone
         self.dtype = getattr(torch, compute_dtype)
         self.remat = remat
@@ -63,14 +68,16 @@ class RPNTrainer(Trainer):
         drawn uniforms (tests)."""
         model = state.model
         model.train()
+        b = batch["grids"].shape[0]
         loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"], batch["gt_valid"],
                           deterministic=False, training=True,
-                          droppath_generator=self._generator(state.seed, state.step, _DROPPATH),
-                          sample_generator=self._generator(state.seed, state.step, _SAMPLE),
-                          sample_draws=sample_draws)
+                          droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
+                                                             b),
+                          sample_generator=self._generator(state.seed, state.step, _SAMPLE, b),
+                          sample_draws=sample_draws, count_sum=self.count_sum)
         grad_norm = self._update(state, loss)
         metrics = {k: v.detach() for k, v in aux.items()}
-        return state, {**metrics, "loss": loss.detach(), "grad_norm": grad_norm}
+        return state, self._global({**metrics, "loss": loss.detach(), "grad_norm": grad_norm})
 
     @torch.no_grad()
     def predict_step(self, state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
@@ -84,8 +91,8 @@ class RCNNTrainer(Trainer):
     """The RCNN stage over a frozen first stage's features and proposals."""
 
     def __init__(self, rcnn: RCNNConfig, train_cfg: TrainConfig, total_steps: int,
-                 device="cuda", in_channels: int = 256):
-        super().__init__(None, train_cfg, total_steps, device)
+                 device="cuda", in_channels: int = 256, mesh: Optional[DataMesh] = None):
+        super().__init__(None, train_cfg, total_steps, device, mesh)
         self.rcnn, self.in_channels = rcnn, in_channels
 
     def _build_model(self) -> RCNNStage:
@@ -104,11 +111,12 @@ class RCNNTrainer(Trainer):
         model.train()
         loss, aux = model(feats, proposals["boxes"], proposals["valid"], batch["gt_boxes"],
                           batch["gt_valid"], draws=draws,
-                          generator=self._generator(state.seed, state.step, _SAMPLE),
-                          training=True)
+                          generator=self._generator(state.seed, state.step, _SAMPLE,
+                                                    proposals["boxes"].shape[0]),
+                          training=True, count_sum=self.count_sum)
         grad_norm = self._update(state, loss)
         metrics = {k: v.detach() for k, v in aux.items()}
-        return state, {**metrics, "loss": loss.detach(), "grad_norm": grad_norm}
+        return state, self._global({**metrics, "loss": loss.detach(), "grad_norm": grad_norm})
 
     @torch.no_grad()
     def predict_step(self, state: TrainState, feats: List[torch.Tensor],

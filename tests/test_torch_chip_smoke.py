@@ -297,3 +297,17 @@ def test_density_on_boxes_passes_on_the_boxes_and_fails_off_them():
         chip_smoke.density_on_boxes(grid, shifted, scale=1.0)
     with pytest.raises(AssertionError, match="no positive density"):
         chip_smoke.density_on_boxes(np.zeros_like(grid), boxes, scale=1.0)
+
+
+def test_phase18_torchrun_command_and_mesh_report():
+    """Phase 18's torchrun command runs this script's --rank_main under
+    torch.distributed.run, and the drivers' closing mesh line is read back
+    (rank, world, backend, collectives, gradient bytes)."""
+    cmd = chip_smoke.torchrun_command("run_fcos", "/o.json", ["--steps", "2"])
+    assert cmd[1:7] == ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                        chip_smoke.__file__.replace(".pyc", ".py")]
+    assert cmd[7:] == ["--rank_main", "run_fcos", "/o.json", "--steps", "2"]
+    text = ("x INFO data mesh rank 0 of 1 (nccl): 19 collectives, 2902048 gradient bytes "
+            "reduced\nother\n")
+    assert chip_smoke.mesh_report(text) == [(0, 1, "nccl", 19, 2902048)]
+    assert chip_smoke.mesh_report("no mesh") == []
