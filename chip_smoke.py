@@ -137,7 +137,8 @@ Phases (any failure raises and the exit code is not 0):
      collective runs; the mesh logs its count and the gradient bytes
      reduced): 22 + 22 launches a step and losses bitwise equal to phase 7's
      run without a group (else within the spread of two plain runs, which
-     the line says), then `--mode benchmark` under torchrun beside phase 7's;
+     the line says), then `--mode benchmark` in the same torchrun process
+     (one process start for both) beside phase 7's;
      (b) two ranks sharing the card over gloo (CUDA tensors), started by
      nerf_mae_torch.parallel.dryrun.launch, through parallel and MAETrainer
      at swin_b 160^3 with a global batch of 8 (4 a rank) for 2 steps, in
@@ -150,7 +151,19 @@ Phases (any failure raises and the exit code is not 0):
      replicas equal; (c) `run_fcos.main` (OBB, swin_s 160^3, batch 8) under torchrun
      for 2 steps from phase 12's MAE: finite losses, positives, 22 + 22
      launches a step, the first loss bitwise equal to phase 14's;
- 19. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 19. grid sharding: two ranks sharing the card over gloo on a (1 data x 2
+     space) mesh (nerf_mae_torch.parallel.dryrun.launch), each computing on
+     its slab of every grid: (a) the swin_b MAE at 160^3 through MAETrainer
+     (batch 2, 2 steps, float32 and bf16) against one process on the plain
+     path from the ranks' weights before each step: losses within rel 1e-3,
+     parameters within 2 lr, float32 gradients per group within rel L2 1e-3
+     or 3 times the one process's own float32 error (from step 2;
+     phase_spatial says why); (b) `run_voxel_sr.main --mesh_space 2` (swin_s 160^3 ->
+     256^3, float32, batch 2, 2 steps from phase 12's MAE) against the
+     driver in one process on the plain path; no kernel launches on the
+     ranks, each rank's peak memory beside one process's, the phase's
+     seconds;
+ 20. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Every phase header prints the seconds since the start.
 Without a CUDA card it exits with code 1 and prints no result.
@@ -942,9 +955,14 @@ def train_step_grads(cfg, state, grids, sizes, token_mask):
 
 def group_rel(got, want):
     """Per-group relative L2 of two {name: gradient} dicts."""
+    return group_rel_of(got, want, param_group)
+
+
+def group_rel_of(got, want, group_of):
+    """Relative L2 of two {name: gradient} dicts by group_of(name)."""
     num, den = {}, {}
     for name, w in want.items():
-        grp = param_group(name)
+        grp = group_of(name)
         num[grp] = num.get(grp, 0.0) + (got[name] - w).norm().item() ** 2
         den[grp] = den.get(grp, 0.0) + w.norm().item() ** 2
     return {g: math.sqrt(num[g] / max(den[g], 1e-30)) for g in num}
@@ -3105,25 +3123,51 @@ def mesh_report(text):
     return [(int(r), int(w), b, int(c), int(g)) for r, w, b, c, g in MESH_LOG.findall(text)]
 
 
+THEN = "--then"  # separates the driver runs of one torchrun process
+
+
 def rank_main(module, out, argv):
-    """Under torchrun: `nerf_mae_torch.<module>.main(argv)` in this rank, with
-    the numerics main() sets; rank 0 writes {"result", "launches"} to out."""
+    """Under torchrun: `nerf_mae_torch.<module>.main(run)` in this rank for
+    each run of argv (runs separated by THEN), with the numerics main()
+    sets, in one process group made here (so the runs share one process
+    start); rank 0 writes {"results", "launches"} (one of each a run) to
+    out."""
+    import torch.distributed as dist
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    reset_launches()
-    result = importlib.import_module(f"nerf_mae_torch.{module}").main(argv)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    runs, run = [], []
+    for a in argv:
+        if a == THEN:
+            runs, run = runs + [run], []
+        else:
+            run.append(a)
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if cuda else "gloo")
+    results, launches = [], []
+    try:
+        for run in runs + [run]:
+            reset_launches()
+            results.append(importlib.import_module(f"nerf_mae_torch.{module}").main(run))
+            if cuda:
+                torch.cuda.synchronize()
+            launches.append(read_launches())
+    finally:
+        dist.destroy_process_group()
     if os.environ.get("RANK", "0") == "0":
         with open(out, "w") as f:
-            json.dump({"result": result, "launches": read_launches()}, f)
+            json.dump({"results": results, "launches": launches}, f)
     return 0
 
 
-def torchrun(module, argv, tmp, tag):
-    """Run a driver under torchrun on one card (NCCL, world size 1); returns
-    (rank 0's result, its launches, the mesh report, seconds)."""
+def torchrun(module, argvs, tmp, tag):
+    """Run a driver under torchrun on one card (NCCL, world size 1), once for
+    each argv of argvs in one process; returns (rank 0's results, their
+    launches, the mesh report of each, seconds)."""
     out = os.path.join(tmp, f"{tag}.json")
+    argv = [a for i, run in enumerate(argvs) for a in ([THEN] if i else []) + run]
     t0 = time.perf_counter()
     proc = subprocess.run(torchrun_command(module, out, argv), capture_output=True, text=True,
                           timeout=DP_TIMEOUT_S)
@@ -3135,32 +3179,33 @@ def torchrun(module, argv, tmp, tag):
     with open(out) as f:
         got = json.load(f)
     report = mesh_report(text)
-    if [r[:3] for r in report] != [(0, 1, "nccl")] or report[0][3] == 0:
-        raise AssertionError(f"torchrun {module} ({tag}): expected one NCCL rank of 1 that "
-                             f"ran collectives, the mesh logged {report}")
-    return got["result"], got["launches"], report[0], secs
+    if [r[:3] for r in report] != [(0, 1, "nccl")] * len(argvs) or not all(
+            r[3] for r in report):
+        raise AssertionError(f"torchrun {module} ({tag}): expected an NCCL rank of 1 that "
+                             f"ran collectives in each run, the mesh logged {report}")
+    return got["results"], got["launches"], report, secs
 
 
 def phase_dp_world1(tmp, train_history, bench, smi):
     """(a) run_mae_pretrain under torchrun, NCCL at world size 1, phase 7's
     flags: its losses against phase 7's non-distributed run, 22 + 22
     launches a step, the gradient bytes reduced a step; then its
-    benchmark beside phase 7's."""
+    benchmark beside phase 7's, in the same torchrun process."""
     common = ["--dataset", "synthetic", "--backbone_type", "swin_b", "--resolution", str(RES),
               "--batch_size", str(TRAIN_BATCH), "--device", "cuda", "--n_synthetic",
               str(TRAIN_BATCH), "--seed", "0"]
     train = ["--mode", "train", *common, "--steps", str(TRAIN_STEPS), "--log_interval", "1",
              "--eval_interval", "1000000", "--ckpt_interval", "1000000"]
-    result, launches, report, secs = torchrun(
-        "run_mae_pretrain", [*train, "--checkpoint_dir", os.path.join(tmp, "dp_mae")], tmp,
-        "dp_mae_train")
+    (result, bres), (launches, _), (report, _), secs = torchrun(
+        "run_mae_pretrain", [[*train, "--checkpoint_dir", os.path.join(tmp, "dp_mae")],
+                             ["--mode", "benchmark", *common]], tmp, "dp_mae")
     losses = [h["loss"] for h in result["history"]]
     plain = [h["loss"] for h in train_history]
     grad_bytes = report[4] // TRAIN_STEPS
     log(f"  (a) torchrun --nproc_per_node 1 run_mae_pretrain (NCCL, world 1): {TRAIN_STEPS} "
-        f"steps in {secs:.1f} s (process and data included), losses {losses}, launches "
-        f"{launches}, {report[3]} collectives, {grad_bytes} gradient bytes reduced a step "
-        f"({grad_bytes / 2**20:.1f} MiB)")
+        f"steps, then the benchmark, in {secs:.1f} s (process and data included), losses "
+        f"{losses}, launches {launches}, {report[3]} collectives, {grad_bytes} gradient bytes "
+        f"reduced a step ({grad_bytes / 2**20:.1f} MiB)")
     want = 22 * TRAIN_STEPS
     if launches["block"] != want or launches["block_bwd"] != want:
         raise AssertionError(f"torchrun launches {launches}, expected {want} + {want}")
@@ -3176,13 +3221,11 @@ def phase_dp_world1(tmp, train_history, bench, smi):
             f"{'not ' if spread else ''}repeatable)")
         if not spread or off > spread:
             raise AssertionError("the NCCL world-1 losses lie outside the plain runs' spread")
-    bres, _, _, bsecs = torchrun("run_mae_pretrain", ["--mode", "benchmark", *common], tmp,
-                                 "dp_mae_bench")
     log(f"  (a) benchmark under torchrun: {bres['step_ms']:.3f} ms/step (std "
         f"{bres['step_ms_std']:.3f}), {bres['grids_per_sec']:.4f} grids/s, world "
         f"{bres['world_size']}, {bres['batch_per_rank']} a rank, peak "
         f"{bres['peak_mem_gib']} GiB; phase 7 without a group: {bench['step_ms']:.3f} "
-        f"ms/step ({bsecs:.1f} s) | {smi}")
+        f"ms/step | {smi}")
 
 
 def dp_host_batch(seed, resolution, batch):
@@ -3423,7 +3466,7 @@ def phase_dp_fcos(tmp, mae_ckpt, fcos_history, smi):
               "--steps", str(DP_FCOS_STEPS), "--mae_checkpoint", mae_ckpt, "--checkpoint_dir",
               os.path.join(tmp, "dp_fcos"), "--log_interval", "1", "--eval_interval",
               "1000000", "--ckpt_interval", "1000000"]
-    result, launches, report, secs = torchrun("run_fcos", common, tmp, "dp_fcos")
+    (result,), (launches,), (report,), secs = torchrun("run_fcos", [common], tmp, "dp_fcos")
     history = result["history"]
     log(f"  (c) torchrun run_fcos (NCCL, world 1): {DP_FCOS_STEPS} steps in {secs:.1f} s, "
         f"losses {[h['loss'] for h in history]}, num_pos {[h['num_pos'] for h in history]}, "
@@ -3436,6 +3479,333 @@ def phase_dp_fcos(tmp, mae_ckpt, fcos_history, smi):
         raise AssertionError(f"torchrun run_fcos history {history}")
     if history[0]["loss"] != fcos_history[0]["loss"]:
         raise AssertionError("torchrun run_fcos's first loss differs from phase 14's")
+
+
+# Grid sharding (phase 19): two ranks sharing the card over gloo on a
+# (1 data x 2 space) mesh, each computing on its slab of every grid; the MAE
+# through MAETrainer and the SR head through run_voxel_sr --mesh_space 2, each
+# step against one process on the plain path (the spatial path runs the plain
+# attention: no kernel launches there, as JAX runs no Pallas under `space`).
+SP_STEPS = 2
+SP_BATCH = 2
+SP_LOSS_REL = 1e-3  # each step's loss against one process
+SP_GRAD_REL = 1e-3  # float32 gradients per group (rel L2), before the clip
+SP_OWN_FACTOR = 3  # ... or this many times the one process's own float32 error
+SP_TIMEOUT_S = 600
+
+
+def plain_cfg(cfg):
+    """cfg with the plain attention (the one-process reference of phase 19)."""
+    return dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, attention_impl="plain"))
+
+
+class _SumInstanceNorm3d(torch.autograd.Function):
+    """The instance norm with its statistics as sums divided by the count
+    (two passes, the slabs' formula) in place of torch.var_mean: another
+    valid float32 evaluation of it."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        n = x[0, ..., 0].numel()
+        x32 = x.float()
+        mean = x32.sum(dim=(1, 2, 3), keepdim=True) / n
+        rstd = torch.rsqrt(((x32 - mean) ** 2).sum(dim=(1, 2, 3), keepdim=True) / n + eps)
+        ctx.save_for_backward(x, mean, rstd)
+        return ((x32 - mean) * rstd).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd = ctx.saved_tensors
+        n = x[0, ..., 0].numel()
+        xhat, g32 = (x.float() - mean) * rstd, g.float()
+        gm = g32.sum(dim=(1, 2, 3), keepdim=True) / n
+        gxm = (g32 * xhat).sum(dim=(1, 2, 3), keepdim=True) / n
+        return (rstd * (g32 - gm - xhat * gxm)).to(x.dtype), None
+
+
+class other_float32_algorithms:
+    """Within the block, another valid float32 evaluation of the same
+    step: the other cuBLAS library for every GEMM, cuDNN's benchmarked
+    convolution algorithms and the instance norms' statistics as sums
+    (other summation orders everywhere)."""
+
+    def __enter__(self):
+        from nerf_mae_torch.models import unetr
+
+        self._unetr, self._norm = unetr, unetr._InstanceNorm3d
+        unetr._InstanceNorm3d = _SumInstanceNorm3d
+        self._conv = torch.backends.cudnn.benchmark
+        self._blas = None
+        if torch.cuda.is_available():
+            self._blas = torch.backends.cuda.preferred_blas_library()
+            other = ("cublaslt" if self._blas == torch._C._BlasBackend.Cublas else "cublas")
+            torch.backends.cuda.preferred_blas_library(other)
+            torch.backends.cudnn.benchmark = True
+        return self
+
+    def __exit__(self, *exc):
+        self._unetr._InstanceNorm3d = self._norm
+        torch.backends.cudnn.benchmark = self._conv
+        if self._blas is not None:
+            torch.backends.cuda.preferred_blas_library(self._blas)
+
+
+def own_error(*distances):
+    """{group: the largest of the one process's distances from other valid
+    float32 evaluations of its step}, per step."""
+    return [{g: max(d[g] for d in per_step) for g in per_step[0]}
+            for per_step in zip(*distances)]
+
+
+def sr_space_argv(mae_ckpt, ckpt, space):
+    """run_voxel_sr's train flags of phase 19: swin_s 160^3 -> 256^3, float32,
+    batch 2, a checkpoint after every step, from phase 12's MAE."""
+    return ["--mode", "train", "--dataset", "synthetic", "--backbone_type", "swin_s",
+            "--resolution", str(RES), "--out_resolution", str(SR_OUT[0]), "--batch_size",
+            str(SP_BATCH), "--n_synthetic", str(SP_BATCH), "--seed", "0", "--device", "cuda",
+            "--compute_dtype", "float32", "--steps", str(SP_STEPS), "--mae_checkpoint",
+            mae_ckpt, "--checkpoint_dir", ckpt, "--log_interval", "1", "--eval_interval",
+            "1000000", "--ckpt_interval", "1", "--mesh_space", str(space)]
+
+
+class recorded_clips:
+    """Within the block, every trainer built records the gradients its clip
+    sees (a list a step, in the parameters' order, on the host)."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from nerf_mae_torch.train import trainer as tr
+
+        self._tr, self._clip = tr, tr.clip_with_nonfinite_guard
+
+        def clip(gs, max_norm):
+            self.steps.append([g.detach().float().cpu() for g in gs])
+            return self._clip(gs, max_norm)
+
+        tr.clip_with_nonfinite_guard = clip
+        return self
+
+    def __exit__(self, *exc):
+        self._tr.clip_with_nonfinite_guard = self._clip
+
+
+def sr_step_params(ckpt):
+    """{step: parameters} of run_voxel_sr's checkpoints."""
+    from nerf_mae_torch.train.checkpoint import checkpoint_steps, restore_checkpoint
+
+    return {k: restore_checkpoint(ckpt, k)["params"] for k in checkpoint_steps(ckpt)}
+
+
+def space_rank(steps, seed, resolution, batch, mae_ckpt, workdir, device="cuda",
+               dtypes=("float32", "bfloat16")):
+    """A launch target of phase 19: one of two ranks sharing the card over
+    gloo on a (1 x 2) mesh. The swin_b MAE in each of `dtypes` (rank 0 then
+    runs one process on the plain path from the ranks' weights before each
+    step, and the same computed row by row), then run_voxel_sr --mesh_space
+    2 (rank 0 saves its gradients to workdir). Returns the numbers."""
+    from nerf_mae_torch.common import to_device
+    from nerf_mae_torch.parallel import barrier, gather_objects, make_mesh, shard_batch
+    from nerf_mae_torch.train.trainer import MAETrainer
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    host = dp_host_batch(seed, resolution, batch)
+    tcfg = TrainConfig(batch_size=batch)
+    out = {}
+    with make_mesh(2, device=device, backend="gloo", n_space=2) as mesh:
+        dev = mesh.device
+        for dtype in dtypes:
+            cfg = MAEConfig(swin=SWIN_PRESETS["swin_b"], resolution=resolution,
+                            compute_dtype=dtype)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            trainer = MAETrainer(cfg, tcfg, steps, mesh=mesh)
+            losses, grads, params, launches, starts = _recorded_steps(
+                trainer, shard_batch(host, mesh), seed, steps, record_starts=mesh.rank == 0)
+            secs = time.perf_counter() - t0
+            flat = torch.cat([p.reshape(-1) for p in params[-1].values()]).cpu().numpy()
+            digests = gather_objects(hashlib.sha256(flat.tobytes()).hexdigest(), mesh)
+            del flat
+            o = out[dtype] = {
+                "rank": mesh.rank, "space_rank": mesh.space_rank, "backend": dist.get_backend(),
+                "device": str(dev), "attention_impl": trainer.mae_cfg.swin.attention_impl,
+                "losses": losses, "launches": launches, "seconds": secs,
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "replicas_equal": len(set(digests)) == 1, "collectives": mesh.collectives}
+            if mesh.rank == 0:
+                plain = plain_cfg(cfg)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)  # the ranks' records
+                ref = _recorded_steps(MAETrainer(plain, tcfg, steps, device=dev),
+                                      to_device(host, dev), seed, steps, starts)
+                o["one_peak_gib"] = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+                o["ref_losses"], o["ref_launches"], o["lr"] = ref[0], ref[3], tcfg.lr
+                o["vs_one"] = _against(grads, params, losses, ref)
+                if dtype == "float32":  # the own error the float32 gradients are held to
+                    rows = _microbatch_steps(plain, tcfg, host, seed, steps, batch, dev, starts)
+                    o["rows_vs_one"] = _against(rows[1], rows[2], rows[0], ref)
+                    del rows
+                    with other_float32_algorithms():
+                        alt = _recorded_steps(MAETrainer(plain, tcfg, steps, device=dev),
+                                              to_device(host, dev), seed, steps, starts)
+                    o["alt_vs_one"] = _against(alt[1], alt[2], alt[0], ref)
+                    del alt
+                del ref
+            del grads, params, starts, trainer
+            torch.cuda.empty_cache()
+            barrier(mesh)  # rank 1 waits for the references
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_clips() as rec:
+            sr = run_voxel_sr.main(sr_space_argv(mae_ckpt, os.path.join(workdir, "sr_space"),
+                                                 2))
+        torch.cuda.synchronize()
+        out["sr"] = {"losses": [h["loss"] for h in sr["history"]],
+                     "seconds": time.perf_counter() - t0, "launches": read_launches(),
+                     "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if mesh.rank == 0:
+            torch.save(rec.steps, os.path.join(workdir, "sr_space_grads.pt"))
+        barrier(mesh)
+    return out
+
+
+def phase_spatial(tmp, mae_ckpt, smi):
+    """Phase 19: the grid sharding on two gloo ranks sharing the card (the
+    (1 data x 2 space) mesh), against one process on the plain path:
+    (a) the swin_b MAE at 160^3, batch 2, 2 steps, float32 and bf16, each
+    reference step from the ranks' weights and optimizer state before it;
+    losses within rel 1e-3, parameters within 2 lr after each step, float32
+    gradients per group within rel L2 1e-3, or SP_OWN_FACTOR times the one
+    process's own float32 error where that is larger: its distance from
+    other valid float32 evaluations of the same step (row by row; the other
+    cuBLAS library, cuDNN's benchmarked algorithms and the instance norms'
+    statistics as sums), gated from step 2: at the random initial weights
+    the step's gradients of stages 1-3 and decoders 4-3 are not determined
+    to better than ~1e-2 by its inputs (the slab split moves them 3.4 times
+    as far as those evaluations do, on an H100); after one update the slab
+    split sat at 1.0-1.5 times the own error over three whole runs, both
+    varying from run to run with the first update; step 1 and bf16
+    printed; (b) run_voxel_sr
+    --mesh_space 2 (swin_s 160^3 -> 256^3, float32, batch 2, 2 steps from
+    phase 12's MAE) against run_voxel_sr in one process: losses within rel
+    1e-3, the checkpoints' parameters within 2 lr after each step, step 1's
+    gradients per group within rel L2 1e-3 or SP_OWN_FACTOR times the one
+    process's own error (its rerun under the other algorithms). No kernel launches on the
+    ranks; each rank's peak memory beside one process's."""
+    from nerf_mae_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(dir=tmp)
+    out = dryrun.launch("chip_smoke:space_rank", 2, {
+        "steps": SP_STEPS, "seed": 0, "resolution": RES, "batch": SP_BATCH,
+        "mae_ckpt": mae_ckpt, "workdir": workdir}, local_world=1, timeout_s=SP_TIMEOUT_S,
+        threads=4)
+    zero = {"block": 0, "block_bwd": 0, "attention": 0, "attention_bwd": 0}
+    worst = lambda rels: [f"{max(g.values()):.3e}" for g in rels]
+    failed = []
+    for dtype in ("float32", "bfloat16"):
+        r0 = out[0][dtype]
+        for o in (r[dtype] for r in out):
+            log(f"  (a) MAE {dtype}: rank {o['rank']} (space {o['space_rank']}) on {o['device']} "
+                f"over {o['backend']}, attention {o['attention_impl']}: losses {o['losses']}, "
+                f"launches {o['launches']}, replicas equal {o['replicas_equal']}, "
+                f"{o['collectives']} collectives, {o['seconds']:.1f} s, peak "
+                f"{o['peak_gib']:.3f} GiB" + (" (with copies of the weights and AdamW state "
+                                              "before each step, for the references)"
+                                              if o["rank"] == 0 else ""))
+            if o["backend"] != "gloo" or o["device"] != "cuda:0" or o["launches"] != zero:
+                failed.append(f"MAE {dtype} rank {o['rank']}: {o['device']}, {o['backend']}, "
+                              f"launches {o['launches']}")
+            if not o["replicas_equal"] or o["losses"] != r0["losses"]:
+                failed.append(f"MAE {dtype}: the ranks' parameters or losses differ")
+        vo = r0["vs_one"]
+        if dtype == "float32":
+            rv, av = r0["rows_vs_one"], r0["alt_vs_one"]
+            own = own_error(rv["grad_rel"], av["grad_rel"])
+            owns = (f"; the one process's own: row by row {worst(rv['grad_rel'])}, other "
+                    f"algorithms {worst(av['grad_rel'])}")
+        else:
+            own, owns = None, ""
+        log(f"  (a) MAE {dtype} against one process (plain, losses {r0['ref_losses']}, "
+            f"launches {r0['ref_launches']}, peak {r0['one_peak_gib']:.3f} GiB over what its "
+            f"process held): loss rel "
+            f"{[f'{x:.3e}' for x in vo['loss_rel']]} (tol {SP_LOSS_REL}), parameters' max "
+            f"difference after each step {vo['param_diff']} (tol 2 lr = {2 * r0['lr']:g}); "
+            f"gradients' worst group rel L2 per step {worst(vo['grad_rel'])}{owns}; step 1 by "
+            "group" + (" (own error)" if own else "") + ": " + ", ".join(
+                f"{k} {v:.2e}" + (f" ({own[0][k]:.2e})" if own else "")
+                for k, v in vo["grad_rel"][0].items()) + f" | {smi}")
+        if max(vo["loss_rel"]) > SP_LOSS_REL or max(vo["param_diff"]) > 2 * r0["lr"]:
+            failed.append(f"MAE {dtype}: losses or parameters disagree with one process")
+        if dtype == "float32":  # from step 2: at the initial weights, printed only
+            for step, (rels, err) in list(enumerate(zip(vo["grad_rel"], own)))[1:]:
+                over = {g: v for g, v in rels.items()
+                        if v > max(SP_GRAD_REL, SP_OWN_FACTOR * err[g])}
+                if over:
+                    failed.append(f"MAE float32 step {step + 1}: gradients disagree {over}")
+
+    sr = [o["sr"] for o in out]
+    ckpt = os.path.join(tmp, "sr_one")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what this process holds already
+    reset_launches()
+    mae_config = run_voxel_sr.mae_config
+    run_voxel_sr.mae_config = lambda args: plain_cfg(mae_config(args))
+    try:
+        with recorded_clips() as rec:
+            one = run_voxel_sr.main(sr_space_argv(mae_ckpt, ckpt, 1))
+    finally:
+        run_voxel_sr.mae_config = mae_config
+    torch.cuda.synchronize()
+    one_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    one_launches = read_launches()
+    one_losses = [h["loss"] for h in one["history"]]
+    run_voxel_sr.mae_config = lambda args: plain_cfg(mae_config(args))
+    try:
+        with recorded_clips() as alt, other_float32_algorithms():
+            run_voxel_sr.main(sr_space_argv(mae_ckpt, os.path.join(tmp, "sr_alt"), 1))
+    finally:
+        run_voxel_sr.mae_config = mae_config
+    names = list(sr_step_params(ckpt)[1])
+    space_grads = torch.load(os.path.join(workdir, "sr_space_grads.pt"))
+    rel = lambda a, b: group_rel_of(dict(zip(names, a)), dict(zip(names, b)), head_param_group)
+    by_step = [rel(g, w) for g, w in zip(space_grads, rec.steps)]
+    own = rel(alt.steps[0], rec.steps[0])
+    ps, pw = sr_step_params(os.path.join(workdir, "sr_space")), sr_step_params(ckpt)
+    param_diff = [max(float((ps[k][n] - pw[k][n]).abs().max()) for n in pw[k])
+                  for k in sorted(pw)]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(sr[0]["losses"], one_losses)]
+    lr = TrainConfig().lr
+    for r, o in enumerate(sr):
+        log(f"  (b) run_voxel_sr --mesh_space 2, rank {r}: losses {o['losses']}, launches "
+            f"{o['launches']}, {o['seconds']:.1f} s (data included), peak {o['peak_gib']:.3f} "
+            "GiB")
+        if o["launches"] != zero or o["losses"] != sr[0]["losses"]:
+            failed.append(f"SR rank {r}: launches {o['launches']} or losses differ")
+    log(f"  (b) run_voxel_sr in one process (plain): losses {one_losses}, launches "
+        f"{one_launches}, peak {one_peak:.3f} GiB over what this process held; loss rel {[f'{x:.3e}' for x in loss_rel]} "
+        f"(tol {SP_LOSS_REL}), parameters' max difference after each step {param_diff} "
+        f"(tol 2 lr = {2 * lr:g}), gradients' worst group rel L2 per step "
+        f"{worst(by_step)} (step 1 gated); step 1 by group (the one process's own, other "
+        "algorithms): " + ", ".join(f"{k} {v:.2e} ({own[k]:.2e})" for k, v in by_step[0].items())
+        + f" | {smi}")
+    if max(loss_rel) > SP_LOSS_REL or max(param_diff) > 2 * lr:
+        failed.append("SR: losses or parameters disagree with one process")
+    over = {g: v for g, v in by_step[0].items()
+            if v > max(SP_GRAD_REL, SP_OWN_FACTOR * own[g])}
+    if over:
+        failed.append(f"SR: step 1's gradients disagree {over}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s with its processes")
+    if failed:
+        raise AssertionError("phase 19: " + "; ".join(failed))
 
 
 def main() -> int:
@@ -3552,7 +3922,14 @@ def main() -> int:
         phase_dp_gloo(smi)
         phase_dp_fcos(tmp, mae_ckpt, fcos_history, smi)
 
-    log(f"[19] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+        log(f"[19] grid sharding: two gloo ranks sharing the card on a (1 data x 2 space) "
+            f"mesh, the swin_b MAE at {RES}^3 (batch {SP_BATCH}, {SP_STEPS} steps, float32 and "
+            f"bf16) and run_voxel_sr --mesh_space 2 (swin_s {RES}^3 -> {SR_OUT[0]}^3, float32), "
+            "each step against one process on the plain path")
+        torch.cuda.empty_cache()
+        phase_spatial(tmp, mae_ckpt, smi)
+
+    log(f"[20] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

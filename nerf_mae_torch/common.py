@@ -21,6 +21,12 @@ feed loads its rows of each batch; checkpoints, the metric log, --eval_json,
 --profile_dir and the benchmark's JSON line are rank 0's (the others wait at
 a barrier where rank 0 writes); the evals reduce to the global batch's
 metrics on every rank.
+
+Grid sharding (`--mesh_space S`, the MAE, SR and semantics drivers): the
+world is a [world / S, S] mesh; a data row's S ranks load the same rows and
+each keeps its slab of axis 1 of every grid leaf (parallel.mesh.host_slab,
+also the device corpus's), so --batch_size divides over world / S ranks.
+The detection drivers refuse it, as their JAX drivers do.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from nerf_mae_torch.parallel.mesh import (
     barrier,
     distributed,
     gather_objects,
+    host_slab,
     is_main,
     make_mesh,
     shard_batch,
@@ -99,32 +106,29 @@ def add_common_flags(p: argparse.ArgumentParser,
 
 def add_mesh_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """--mesh_space (scripts/common.py's flag): the [data, space] grid
-    sharding, which the port does not have yet; build_mesh refuses > 1."""
+    sharding over the process group's ranks (build_mesh)."""
     p.add_argument("--mesh_space", default=1, type=int,
                    help="shard the voxel grid's first spatial dim over this many "
-                        "devices (not in the port yet: only 1)")
+                        "ranks ([data, space] mesh; the world must be a multiple)")
     return p
 
 
 def build_mesh(args, spatial_ok: bool = True) -> DataMesh:
-    """The driver's data mesh (parallel.make_mesh on --device): the process
-    group of torchrun's environment, or one process without a group.
-    --mesh_space > 1 raises SystemExit: the grid sharding is not ported yet
-    (detection refuses it as its JAX drivers do, spatial_ok=False)."""
-    if (getattr(args, "mesh_space", 1) or 1) > 1:
-        if not spatial_ok:
-            raise SystemExit(
-                "--mesh_space > 1 is only supported by the MAE/SR/semantics "
-                "trainers (detection trainers are data-parallel only)")
-        raise SystemExit("--mesh_space > 1: the [data, space] grid sharding is not in the "
-                         "PyTorch port yet (data parallelism only: torchrun "
-                         "--nproc_per_node N)")
-    mesh = make_mesh(device=args.device)
+    """The driver's mesh (parallel.make_mesh on --device): the process group
+    of torchrun's environment, or one process without a group, laid out as
+    [world / --mesh_space, --mesh_space]. Detection refuses --mesh_space > 1
+    (spatial_ok=False) with its JAX drivers' words (SystemExit)."""
+    space = getattr(args, "mesh_space", 1) or 1
+    if space > 1 and not spatial_ok:
+        raise SystemExit(
+            "--mesh_space > 1 is only supported by the MAE/SR/semantics "
+            "trainers (detection trainers are data-parallel only)")
+    mesh = make_mesh(device=args.device, n_space=space)
     if distributed(mesh):
-        log.info("data mesh: rank %d of %d on %s over %s, global batch %d (%d a rank)",
-                 mesh.rank, mesh.world_size, mesh.device,
-                 torch.distributed.get_backend(mesh.group), args.batch_size,
-                 args.batch_size // mesh.world_size)
+        log.info("mesh: rank %d of %d on %s over %s, [data %d, space %d], global batch %d "
+                 "(%d a data rank)", mesh.rank, mesh.world_size, mesh.device,
+                 torch.distributed.get_backend(mesh.group), mesh.data_world, mesh.space,
+                 args.batch_size, args.batch_size // mesh.data_world)
     return mesh
 
 
@@ -153,14 +157,15 @@ def metric_logger(args, mesh: Optional[DataMesh], run_name: str) -> MetricLogger
 
 def eval_shards(batches: Iterable[Dict[str, np.ndarray]], mesh: Optional[DataMesh]
                 ) -> Iterator:
-    """(host batch, this rank's rows of it on the mesh's device) for each
-    eval batch. On a group, a batch that does not divide over the ranks is
-    skipped, as the JAX drivers skip it (a static-shape ragged tail)."""
-    world = 1 if mesh is None else mesh.world_size
+    """(host batch, this rank's rows (and slab) of it on the mesh's device)
+    for each eval batch. On a group, a batch that does not divide over the
+    data ranks is skipped, as the JAX drivers skip it (a static-shape ragged
+    tail)."""
+    world = 1 if mesh is None else mesh.data_world
     for batch in batches:
         if distributed(mesh) and len(batch["grids"]) % world:
-            log.warning("eval: skipping a batch of %d scenes (not divisible over %d ranks)",
-                        len(batch["grids"]), world)
+            log.warning("eval: skipping a batch of %d scenes (not divisible over %d data "
+                        "ranks)", len(batch["grids"]), world)
             continue
         yield batch, shard_batch(batch, mesh)
 
@@ -341,11 +346,15 @@ def make_train_batches(args, device: torch.device,
     make_train_batches): the host iterator (a rank's rows of each batch on
     a mesh) behind overlap_batches, or under --device_data the corpus
     (`corpus_iter_factory()`, or the host iterator, drained once: every
-    scene exactly once; the whole corpus on every rank) uploaded and served
-    as device gathers in the host iterator's epoch order, a rank gathering
-    its rows."""
+    scene exactly once; the whole corpus on every rank, its slabs on a space
+    axis) uploaded and served as device gathers in the host iterator's epoch
+    order, a rank gathering its rows. On a space axis the host iterator
+    gives this rank's data row and the feed keeps its slabs."""
     if not getattr(args, "device_data", False):
-        return overlap_batches(host_iter_factory(), device, args.prefetch,
+        source = host_iter_factory()
+        if mesh is not None and mesh.space > 1:
+            source = (host_slab(b, mesh) for b in source)
+        return overlap_batches(source, device, args.prefetch,
                                transfer_dtype=args.transfer_dtype)
     aug = [f for f in ("flip_prob", "rotate_prob", "rot_scale_prob")
            if getattr(args, f, 0.0)]
@@ -355,9 +364,13 @@ def make_train_batches(args, device: torch.device,
             "augmentation is incompatible (drop "
             + ", ".join(f"--{a}" for a in aug) + ")")
     corpus = corpus_from_iterator((corpus_iter_factory or host_iter_factory)())
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    if mesh is None:
+        return device_corpus_batches(corpus, device, args.batch_size, seed=args.seed,
+                                     transfer_dtype=args.transfer_dtype)
     return device_corpus_batches(corpus, device, args.batch_size, seed=args.seed,
-                                 transfer_dtype=args.transfer_dtype, rank=rank, world=world)
+                                 transfer_dtype=args.transfer_dtype, rank=mesh.data_rank,
+                                 world=mesh.data_world, space_rank=mesh.space_rank,
+                                 space=mesh.space)
 
 
 @contextlib.contextmanager
@@ -435,10 +448,13 @@ def _sync(device: torch.device) -> None:
 
 
 def mesh_fields(args, mesh: Optional[DataMesh]) -> Dict:
-    """The benchmark line's data-parallel fields: the world size and the
-    per-rank batch (--batch_size is the global one)."""
-    world = 1 if mesh is None else mesh.world_size
-    return {"world_size": world, "batch_per_rank": args.batch_size // world}
+    """The benchmark line's mesh fields: the world size, the data and space
+    axes and the per-rank batch (--batch_size is the global one; the ranks
+    of a space group hold the same rows)."""
+    if mesh is None:
+        return {"world_size": 1, "data": 1, "space": 1, "batch_per_rank": args.batch_size}
+    return {"world_size": mesh.world_size, "data": mesh.data_world, "space": mesh.space,
+            "batch_per_rank": args.batch_size // mesh.data_world}
 
 
 def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric: str,
@@ -499,14 +515,14 @@ def run(args, trainer, state, batch_iter: Callable[..., Iterator[Dict[str, np.nd
     "checkpoint_dir"}; checkpoints at --ckpt_interval, the best `best_key`
     eval at --eval_interval, and the last step). The training batches are
     make_train_batches' over batch_iter(train_ds, args, rank=, world=) (the
-    trainer's mesh's rank and world size), with `corpus_iter` the one-epoch
-    pass that --device_data uploads."""
+    trainer's mesh's data rank and data world), with `corpus_iter` the
+    one-epoch pass that --device_data uploads."""
     device, mesh = trainer.device, trainer.mesh
     if args.mode == "eval":
         out = run_eval(state)
         write_eval_json(args, mesh, out)
         return out
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    rank, world = (0, 1) if mesh is None else (mesh.data_rank, mesh.data_world)
     batches = make_train_batches(
         args, device, lambda: batch_iter(train_ds, args, rank=rank, world=world),
         corpus_iter, mesh)

@@ -18,7 +18,10 @@ cannot be cached: the drivers refuse them with --device_data.
 
 On a data-parallel mesh every rank holds the whole corpus, as the JAX
 package replicates it over `data` (nerf_mae_tpu/data/device_cache.py:23-27),
-and gathers its rows of each global batch's index vector.
+and gathers its rows of each global batch's index vector. On a space axis
+each rank stores only its slab (the even split of axis 1) of every grid
+leaf, as the JAX corpus is sharded P(None, "space") (:97-131), and gathers
+its data row's rows of it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from nerf_mae_torch.parallel.mesh import batch_rows
+from nerf_mae_torch.parallel.spatial import even_bounds
 
 log = logging.getLogger(__name__)
 
@@ -73,21 +77,27 @@ def device_corpus_batches(
     transfer_dtype: Optional[str] = None,
     rank: int = 0,
     world: int = 1,
+    space_rank: int = 0,
+    space: int = 1,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield batches gathered from the corpus uploaded once to `device`.
 
     The epoch order is mae_batch_iterator's: a RandomState(seed)
     permutation each epoch, the ragged tail dropped, or (drop_last=False)
     padded to batch_size by repeating its first index. `batch_size` is the
-    global batch; world > 1 gathers rank's rows [rank*b, (rank+1)*b) of it.
-    The yielded dicts have the host iterator's keys and go straight to
-    train_step.
+    global batch; world > 1 gathers rank's rows [rank*b, (rank+1)*b) of it
+    (rank and world: the data axis). space > 1 keeps the space_rank-th slab
+    of axis 1 of every grid leaf (ndim >= 4) on the device. The yielded
+    dicts have the host iterator's keys and go straight to train_step.
     """
     device = torch.device(device)
     n = len(next(iter(corpus.values())))
     if batch_size > n:
         raise ValueError(f"batch_size {batch_size} > corpus size {n}")
     own = batch_rows(batch_size, rank, world)
+    if space > 1:
+        corpus = {k: v[:, slice(*even_bounds(v.shape[1], space)[space_rank])]
+                  if v.ndim >= 4 else v for k, v in corpus.items()}
     nbytes = corpus_nbytes(corpus, transfer_dtype)
     dev = {}
     for k, v in corpus.items():

@@ -9,7 +9,9 @@ Every loss of the system divides a sum over the batch by a count that
 depends on the data. Each takes a `count_sum` hook that turns a sum over
 the rows it holds into the sum over the global batch (parallel.count_sum on
 a data-parallel rank); it is applied to the denominator before its clamp,
-so that a rank returns its share of the global loss.
+so that a rank returns its share of the global loss. On a [data, space]
+mesh the hook sums over the whole world: a slab's sums are partial like a
+row's, so masked_mse and masked_psnr are the global batch's.
 """
 
 from __future__ import annotations

@@ -25,6 +25,12 @@ In training with `cfg.remat`, decoder4/3/2 and decoder1 run under
 torch.utils.checkpoint as in the JAX heads, and so does encoder1 (the JAX
 head keeps its activations): at 160^3 the full-resolution blocks hold the
 largest activations of the step.
+
+On a space axis (`spatial`, parallel.spatial.set_spatial) the heads take
+and return this rank's slabs in the even layout: encoder1 and decoder1 run
+at full resolution on slabs, the nearest resize maps this rank's output
+planes to the input planes they read (relayouting where those lie on
+another rank), and every sum of the losses is global.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.mae import embed_tokens, make_patch_partition
 from nerf_mae_torch.models.swin import SwinEncoder3D, remat_call
 from nerf_mae_torch.models.unetr import UnetOutBlock3D, UnetResBlock3D, UnetrUpBlock3D
+from nerf_mae_torch.parallel import spatial as sp
 
 # the parameters grafted from a pretrained MAE into `base`: the trunk and
 # decoder4/3/2 (the reference re-initializes only decoder1, out and the mask
@@ -49,14 +56,18 @@ SR_TRUNK_KEYS = ("patch_partition", "stages", "decoder4", "decoder3", "decoder2"
 
 
 def maybe_remat(cfg: MAEConfig, module, *args):
-    """module(*args), under torch.utils.checkpoint in training with cfg.remat."""
+    """module(*args), under torch.utils.checkpoint in training with cfg.remat
+    (recomputed whole on a space axis: its collectives run on every rank)."""
     if cfg.remat and torch.is_grad_enabled():
-        return remat_call(module, cfg.remat_policy, *args)
+        return remat_call(module, cfg.remat_policy, *args,
+                          early_stop=getattr(module, "spatial", None) is None)
     return module(*args)
 
 
 class MAETrunkWithDecoder(nn.Module):
     """Patch embed + Swin encoder + the MAE's decoder4/3/2 -> [B, T, T, T, C]."""
+
+    spatial = None  # the mesh on a space axis
 
     def __init__(self, cfg: MAEConfig, device="cuda"):
         super().__init__()
@@ -75,7 +86,7 @@ class MAETrunkWithDecoder(nn.Module):
 
     def forward(self, grids: torch.Tensor, deterministic: bool = True,
                 droppath_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        f = self.stages(embed_tokens(self.patch_partition, grids, self.cfg),
+        f = self.stages(embed_tokens(self.patch_partition, grids, self.cfg, self.spatial),
                         deterministic, droppath_generator)
         d = maybe_remat(self.cfg, self.decoder4, f[3], f[2])
         d = maybe_remat(self.cfg, self.decoder3, d, f[1])
@@ -86,6 +97,8 @@ class _DenseHead(nn.Module):
     """base + encoder1 + decoder1, shared by both heads. Parameters are
     created on `device` uninitialised: load a state dict or call
     models.mae.init_weights."""
+
+    spatial = None  # the mesh on a space axis
 
     def __init__(self, cfg: MAEConfig, device="cuda"):
         super().__init__()
@@ -118,10 +131,27 @@ def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return np.floor(offsets).astype(np.int64)
 
 
-def nearest_resize(x: torch.Tensor, out_size: int) -> torch.Tensor:
+def nearest_resize(x: torch.Tensor, out_size: int, mesh=None) -> torch.Tensor:
     """[B, R, R, R, C] -> [B, out, out, out, C] by nearest_indices on each
-    spatial axis (index_select, so the backward sums into each source)."""
-    for axis in (1, 2, 3):
+    spatial axis (index_select, so the backward sums into each source). On
+    a space axis (mesh) x is this rank's even slab of R planes and so is the
+    result of out: its planes read input planes [first, last], relayouted
+    here where they lie on another rank."""
+    if mesh is not None:
+        src = nearest_indices(sp.grid_len(x), out_size)
+        outs = sp.even_bounds(out_size, mesh.space)
+        need = tuple((int(src[a]), int(src[b - 1]) + 1) if b > a else (0, 0)
+                     for a, b in outs)
+        first = need[mesh.space_rank][0]
+        x = sp.exchange(x, sp.even_bounds(sp.grid_len(x), mesh.space), need,
+                        sp.grid_len(x), mesh)
+        a, b = outs[mesh.space_rank]
+        idx = torch.from_numpy(src[a:b] - first).to(x.device)
+        x = x.index_select(1, idx)
+        axes = (2, 3)
+    else:
+        axes = (1, 2, 3)
+    for axis in axes:
         idx = torch.from_numpy(nearest_indices(x.shape[axis], out_size)).to(x.device)
         x = x.index_select(axis, idx)
     return x
@@ -139,7 +169,7 @@ class VoxelSR3D(_DenseHead):
 
     def head(self, d: torch.Tensor) -> torch.Tensor:
         """decoder1's output -> [B, R_out, R_out, R_out, 4] float32."""
-        return nearest_resize(self.voxel_out(d).float(), self.out_resolution)
+        return nearest_resize(self.voxel_out(d).float(), self.out_resolution, self.spatial)
 
 
 class VoxelSemantics3D(_DenseHead):

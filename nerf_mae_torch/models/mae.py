@@ -8,6 +8,11 @@ Swin encoder, UNETR skip decoder (or the subpixel head), and the masked
 reconstruction loss. Channel-last [B, R, R, R, 4] batches with `sizes
 [B, 3]`; float32 parameters named after the reference state_dict, compute
 in `cfg.dtype`.
+
+On a space axis (`spatial`, parallel.spatial.set_spatial) the model takes
+and returns this rank's slab of axis 1 (the even layout): the position
+embedding's rows at the slab's offset, the token mask drawn for the whole
+grid and sliced, and the loss's validity mask in global coordinates.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from nerf_mae_torch.ops.patchify import (
 )
 from nerf_mae_torch.ops.pos_embed import sincos_pos_embed_3d
 from nerf_mae_torch.ops.window_attention import mm_f32
+from nerf_mae_torch.parallel import spatial as sp
 
 
 @functools.lru_cache(maxsize=8)
@@ -67,8 +73,7 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     e = weight.shape[0]
     if x.ndim == 6:
         k = weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(-1, e)
-        b, t = x.shape[0], x.shape[1]
-        flat = x.to(dtype).reshape(b, t, t, t, -1)
+        flat = x.to(dtype).reshape(*x.shape[:4], -1)
         return mm_f32(flat, k).to(dtype) + bias.to(dtype)
     y = torch.nn.functional.conv3d(
         x.to(dtype).permute(0, 4, 1, 2, 3), weight.to(dtype), stride=p)
@@ -85,22 +90,26 @@ def make_patch_partition(cfg: MAEConfig, device) -> nn.ModuleDict:
 
 
 def embed_tokens(patch_partition: nn.ModuleDict, grids: torch.Tensor,
-                 cfg: MAEConfig) -> torch.Tensor:
+                 cfg: MAEConfig, mesh=None) -> torch.Tensor:
     """Patch-embed + LayerNorm + pos-embed -> [B, T, T, T, C]. Takes the
     voxel grid [B, R, R, R, 4], its patched form [B, T, T, T, p^3, 4] or
-    the channel-flat patched form [B, T, T, T, p^3 * 4]."""
+    the channel-flat patched form [B, T, T, T, p^3 * 4]; on a space axis
+    (mesh) their slabs, and the position embedding's rows of the slab."""
     dt = cfg.dtype
     grids = maybe_unflatten_patches(grids, cfg.swin.patch_size[0], cfg.input_channels)
     conv, norm = patch_partition["0"], patch_partition["2"]
     x = patch_embed(grids, conv.weight, conv.bias, dt)
     x = flax_layer_norm(x, norm.weight, norm.bias, cfg.swin.norm_eps).to(dt)
-    return x + pos_embed_tensor(cfg.swin.embed_dim, x.shape[1], x.device, dt)
+    pos = pos_embed_tensor(cfg.swin.embed_dim, sp.grid_len(x), x.device, dt)
+    return x + sp.take_slab(pos, mesh)
 
 
 class SwinMAE3D(nn.Module):
     """Masked reconstruction (`forward`) and the unmasked feature pyramid
     (`encode`). Parameters are created on `device` (default: the CUDA card)
     uninitialised: load a state dict or call `init_weights`."""
+
+    spatial = None  # the mesh on a space axis (module doc)
 
     def __init__(self, cfg: MAEConfig, device="cuda"):
         super().__init__()
@@ -130,13 +139,14 @@ class SwinMAE3D(nn.Module):
 
     def embed(self, grids: torch.Tensor) -> torch.Tensor:
         """embed_tokens through this model's patch embedding."""
-        return embed_tokens(self.patch_partition, grids, self.cfg)
+        return embed_tokens(self.patch_partition, grids, self.cfg, self.spatial)
 
     def _decode(self, module, *args):
         """A decoder block, under torch.utils.checkpoint with decoder_remat
         in training."""
         if self.cfg.decoder_remat and torch.is_grad_enabled():
-            return remat_call(module, self.cfg.remat_policy, *args)
+            return remat_call(module, self.cfg.remat_policy, *args,
+                              early_stop=self.spatial is None)
         return module(*args)
 
     def forward(
@@ -152,7 +162,9 @@ class SwinMAE3D(nn.Module):
         permutation when patched_pred, and token_mask [B, T, T, T] bool).
         Without token_mask the mask is drawn from `generator`, which is
         then required. A training forward (deterministic=False) draws the
-        stochastic-depth keep factors from `droppath_generator`."""
+        stochastic-depth keep factors from `droppath_generator`. On a space
+        axis grids, pred and token_mask are this rank's slabs; a drawn mask
+        is drawn whole and sliced."""
         cfg = self.cfg
         x = self.embed(grids)
         if token_mask is None:
@@ -163,6 +175,7 @@ class SwinMAE3D(nn.Module):
                 block=cfg.mask_block, p_remove=cfg.masking_prob,
                 strategy=cfg.masking_strategy, per_sample=cfg.per_sample_mask,
             )
+            token_mask = sp.take_slab(token_mask, self.spatial)
         token_mask = token_mask.to(x.device)
         # masked tokens (position embedding included) become the mask token
         # (reference: swin_mae3d.py:1461-1463, 1375-1380)
@@ -232,6 +245,7 @@ def mae_loss(
     sizes: torch.Tensor,  # [B, 3] true scene extents
     cfg: MAEConfig,
     count_sum: CountSum = one_rank,
+    mesh=None,
 ):  # pred/target also accepted pre-patchified [B, T, T, T, p^3, 4]
     """The reference's masked-reconstruction loss, exactly
     (reference: swin_mae3d.py:1513-1563):
@@ -245,7 +259,8 @@ def mae_loss(
     `count_sum` makes both voxel counts global before their clamps (a
     data-parallel rank's share of the global loss, metrics.py). Returns
     (loss, aux) with aux = {loss_rgb, loss_alpha, n_rgb, n_alpha}, the
-    counts of the rows given.
+    counts of the rows given. On a space axis (mesh) the tensors are this
+    rank's slabs and the validity mask is taken at the slab's planes.
     """
     p = cfg.swin.patch_size[0]
     pred = pred.float()
@@ -253,7 +268,9 @@ def mae_loss(
     pred_p = pred if pred.ndim == 6 else patchify_3d(pred, p)
     tgt_p = target if target.ndim == 6 else patchify_3d(target, p)
 
-    valid = voxel_validity_mask(sizes, cfg.resolution)  # [B, R, R, R]
+    rows = sp.grid_slab(cfg.token_grid, mesh)
+    valid = voxel_validity_mask(sizes, cfg.resolution,
+                                (p * rows.start, p * rows.stop))  # [B, R, R, R]
     valid_p = patchify_3d(valid[..., None].float(), p)[..., 0]
     mask_remove = valid_p * token_mask[..., None].float()
 

@@ -22,10 +22,18 @@ factors from a droppath generator; a stage whose `remat` is on runs each
 block under torch.utils.checkpoint, except where the fused block kernel
 runs (it recomputes the block in its backward already: swin.py:323-342 of
 the JAX package).
+
+On a space axis (`spatial`, parallel.spatial.set_spatial) the trunk takes
+and returns slabs in the even layout; each stage relayouts its tokens to
+slabs of whole windows (parallel.spatial.window_bounds), where the blocks
+run the plain path and a merge stays local, and relayouts each feature map
+back to the even layout. Every rank of a space group draws the same keep
+factors (a data row's), so the slabs of one sample drop the same paths.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -34,6 +42,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
 )
 
 from nerf_mae_torch.config import SwinConfig
@@ -52,6 +61,7 @@ from nerf_mae_torch.ops.window_attention import (
     mm_f32,
     window_attention_3d,
 )
+from nerf_mae_torch.parallel import spatial as sp
 
 
 class Linear(nn.Module):
@@ -101,14 +111,17 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def remat_call(fn, policy: str, *args):
+def remat_call(fn, policy: str, *args, early_stop: bool = True):
     """fn(*args) under torch.utils.checkpoint: "nothing" keeps only the
-    inputs, "dots" also the matmul and convolution outputs."""
-    if policy == "dots":
-        return checkpoint(fn, *args, use_reentrant=False,
-                          context_fn=lambda: create_selective_checkpoint_contexts(
-                              _dots_policy))
-    return checkpoint(fn, *args, use_reentrant=False)
+    inputs, "dots" also the matmul and convolution outputs. early_stop=False
+    recomputes fn whole (a function with collectives: every rank must run
+    all of them, whatever it saved)."""
+    with set_checkpoint_early_stop(early_stop):
+        if policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: create_selective_checkpoint_contexts(
+                                  _dots_policy))
+        return checkpoint(fn, *args, use_reentrant=False)
 
 
 def flax_layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -147,6 +160,8 @@ class SwinBlock3D(nn.Module):
     (reference: swin_mae3d.py:310-369)
     """
 
+    spatial = None  # the mesh on a space axis: x is a slab of whole windows
+
     def __init__(self, dim: int, num_heads: int, window: Tuple[int, int, int],
                  shift: Tuple[int, int, int], mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.0, norm_eps: float = 1e-5,
@@ -171,7 +186,7 @@ class SwinBlock3D(nn.Module):
         self.remat, self.remat_policy = False, "nothing"
 
     def _kernels_wanted(self, x: torch.Tensor) -> bool:
-        if self.attention_impl == "plain":
+        if self.attention_impl == "plain" or self.spatial is not None:
             return False
         if self.attention_impl == "kernel":
             return True
@@ -224,7 +239,8 @@ class SwinBlock3D(nn.Module):
         keep = self.keep_factors(x, deterministic, generator)
         fused = self.gelu == "tanh" and self._kernels(x)
         if self.remat and torch.is_grad_enabled() and not fused:
-            return remat_call(self._block, self.remat_policy, x, keep)
+            return remat_call(self._block, self.remat_policy, x, keep,
+                              early_stop=self.spatial is None)
         return self._block(x, keep)
 
     def _block(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -256,7 +272,7 @@ class SwinBlock3D(nn.Module):
             attention = FusedWindowAttentionFn.apply if grad else fused_window_attention
             w_qkv, w_proj = self._kernel_weights()[:2]
         else:
-            attention = window_attention_3d
+            attention = functools.partial(window_attention_3d, mesh=self.spatial)
             w_qkv, w_proj = attn.qkv.weight, attn.proj.weight
         h = attention(
             h.to(self.dtype), w_qkv, attn.qkv.bias, w_proj, attn.proj.bias,
@@ -277,6 +293,9 @@ class PatchMerging3D(nn.Module):
     """8-way 2x2x2 concat -> LayerNorm(8C) -> Linear(2C or C, no bias).
 
     (reference: swin_mae3d.py:372-414)
+
+    A slab of whole windows starts at an even plane, so it merges locally;
+    the odd pad of axis 1 falls on the rank that holds the global end.
     """
 
     def __init__(self, dim: int, expand_dim: bool = True, norm_eps: float = 1e-5,
@@ -311,7 +330,10 @@ class SwinEncoder3D(nn.ModuleList):
     Input [B, T, T, T, embed_dim]; returns the per-stage feature pyramid
     [C@T, 2C@T/2, 4C@T/4, 8C@T/8] (reference: swin_mae3d.py:1131-1172).
     `remat_stages` (one bool per stage) turns on the blocks' checkpointing.
+    On a space axis, input and features are even slabs (module doc).
     """
+
+    spatial = None  # the mesh on a space axis
 
     def __init__(self, cfg: SwinConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None, remat_stages: Optional[Sequence[bool]] = None,
@@ -346,12 +368,24 @@ class SwinEncoder3D(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        mesh = self.spatial
         features = []
+        layout = None if mesh is None else sp.even_bounds(sp.grid_len(x), mesh.space)
         for stage in self:
             for layer in stage:
                 if isinstance(layer, PatchMerging3D):
                     x = layer(x)
+                    if mesh is not None:
+                        layout = sp.halve_bounds(layout)
                 else:
+                    if mesh is not None:  # this stage's slabs of whole windows
+                        windows = sp.window_bounds(sp.grid_len(x), layer.window[0],
+                                                   mesh.space)[0]
+                        x, layout = sp.relayout(x, layout, windows, mesh), windows
                     x = layer(x, deterministic, generator)
-            features.append(x)
+            if mesh is not None:
+                even = sp.even_bounds(sp.grid_len(x), mesh.space)
+                features.append(sp.relayout(x, layout, even, mesh))
+            else:
+                features.append(x)
         return features

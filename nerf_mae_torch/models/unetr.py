@@ -7,6 +7,13 @@ NDHWC at every public function; each convolution permutes to NCDHW around
 F.conv3d / F.conv_transpose3d (the JAX package leaves convolutions to XLA,
 outside any kernel). Weights are in torch layout and named after the
 reference state_dict (`transp_conv`, `conv_block.conv1..3`, `out.conv`).
+
+On a space axis (`spatial` set by parallel.spatial.set_spatial) every
+block takes and returns the even slab layout of its grid: a 3^3 convolution
+reads a halo of one plane from each neighbour (zeros at the global ends,
+where SAME pads), the instance norm sums its statistics over the space
+group, a transposed convolution stays local, and an up block relayouts its
+upsampled input where twice the coarse layout differs from the fine one.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nerf_mae_torch.parallel import spatial as sp
 
 
 def _to_ncdhw(x):
@@ -29,6 +38,8 @@ def _to_ndhwc(x):
 class Conv3d(nn.Module):
     """Conv parameter holder, torch layout: weight [O, I, k, k, k], bias [O]."""
 
+    spatial = None  # the mesh on a space axis (parallel.spatial.set_spatial)
+
     def __init__(self, in_ch: int, out_ch: int, k: int, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, k, device=device))
@@ -38,8 +49,19 @@ class Conv3d(nn.Module):
         """'SAME' cross-correlation at the compute dtype, NDHWC in and out;
         the bias is added in the compute dtype, as flax nn.Conv does. A
         stride pads as flax's SAME does: ceil(n / stride) outputs, the odd
-        pad voxel after."""
+        pad voxel after. On a space axis (stride 1 only) the slab takes a
+        halo of k // 2 planes and only axes 2-3 are padded."""
         k = self.weight.shape[-1]
+        if self.spatial is not None:
+            if stride != 1:
+                raise NotImplementedError("a strided convolution is not sharded over space")
+            if k > 1:
+                x = sp.halo(x, k // 2, self.spatial)
+            if x.shape[1] == 0:  # an empty slab: the halo left it empty
+                return empty_result(x, self.weight.shape[0], dtype, self.weight, self.bias)
+            y = F.conv3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype),
+                         padding=(0, k // 2, k // 2))
+            return _to_ndhwc(y) + self.bias.to(dtype)
         if stride == 1:
             y = F.conv3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype), padding=k // 2)
             return _to_ndhwc(y) + self.bias.to(dtype)
@@ -63,8 +85,18 @@ class ConvTranspose3d(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         s = self.weight.shape[-1]
+        if x.shape[1] == 0:  # an empty slab (space axis)
+            return empty_result(x, self.weight.shape[1], dtype, self.weight, self.bias,
+                                scale=s)
         y = F.conv_transpose3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype), stride=s)
         return _to_ndhwc(y) + self.bias.to(dtype)
+
+
+def empty_result(x, out_ch, dtype, *params, scale: int = 1):
+    """The empty slab a convolution of an empty slab x gives (out_ch
+    channels, axes 2-3 scaled), its graph joined to x and the parameters."""
+    b, _, h, w, _ = x.shape
+    return sp.empty_result((b, 0, h * scale, w * scale, out_ch), x, *params).to(dtype)
 
 
 class _InstanceNorm3d(torch.autograd.Function):
@@ -110,10 +142,54 @@ class _InstanceNorm3d(torch.autograd.Function):
         return dx, None
 
 
-def instance_norm_3d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+class _SlabInstanceNorm3d(torch.autograd.Function):
+    """_InstanceNorm3d on a slab of a space axis: the per-(sample, channel)
+    sums of x, then of (x - mean)^2, are summed over the space group
+    before dividing by the global voxel count (the one-process path's
+    two-pass formula); the backward's sums of g and g * xhat likewise."""
+
+    @staticmethod
+    def _sums(x, fn):
+        out = torch.zeros((x.shape[0], 1, 1, 1, x.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        for b in _InstanceNorm3d._chunks(x):
+            out[b] = fn(b).sum(dim=(1, 2, 3), keepdim=True)
+        return out
+
+    @staticmethod
+    def forward(ctx, x, eps, mesh):
+        n = sp.grid_len(x) * x.shape[2] * x.shape[3]
+        mean = sp.all_reduce(_SlabInstanceNorm3d._sums(x, lambda b: x[b].float()), mesh) / n
+        var = sp.all_reduce(_SlabInstanceNorm3d._sums(
+            x, lambda b: (x[b].float() - mean[b]) ** 2), mesh) / n
+        stats = torch.stack([mean, torch.rsqrt(var + eps)])
+        out = torch.empty_like(x)
+        for b in _InstanceNorm3d._chunks(x):
+            out[b] = (x[b].float() - stats[0, b]) * stats[1, b]
+        ctx.save_for_backward(x, stats)
+        ctx.n, ctx.mesh = n, mesh
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        xhat = lambda b: (x[b].float() - stats[0, b]) * stats[1, b]
+        sums = torch.stack([_SlabInstanceNorm3d._sums(g, lambda b: g[b].float()),
+                            _SlabInstanceNorm3d._sums(g, lambda b: g[b].float() * xhat(b))])
+        gm, gxm = sp.all_reduce(sums, ctx.mesh) / ctx.n
+        dx = torch.empty_like(x)
+        for b in _InstanceNorm3d._chunks(x):
+            dx[b] = stats[1, b] * (g[b].float() - gm[b] - xhat(b) * gxm[b])
+        return dx, None, None
+
+
+def instance_norm_3d(x: torch.Tensor, eps: float = 1e-5, mesh=None) -> torch.Tensor:
     """Per-sample, per-channel normalization over the spatial dims, no
     affine, population variance in f32 (torch nn.InstanceNorm3d defaults);
-    the result in x's dtype."""
+    the result in x's dtype. On a space axis (mesh) x is a slab and the
+    statistics are the whole grid's."""
+    if mesh is not None:
+        return _SlabInstanceNorm3d.apply(x, eps, mesh)
     return _InstanceNorm3d.apply(x, eps)
 
 
@@ -143,6 +219,8 @@ class UnetResBlock3D(nn.Module):
     (reference: unetr_block.py:23-93; LeakyReLU slope 0.01)
     """
 
+    spatial = None  # the mesh on a space axis
+
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
@@ -153,11 +231,12 @@ class UnetResBlock3D(nn.Module):
                       if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _lrelu(instance_norm_3d(self.conv1(x, self.dtype)))
-        h = instance_norm_3d(self.conv2(h, self.dtype))
+        norm = lambda t: instance_norm_3d(t, mesh=self.spatial)
+        h = _lrelu(norm(self.conv1(x, self.dtype)))
+        h = norm(self.conv2(h, self.dtype))
         residual = x
         if self.conv3 is not None:
-            residual = instance_norm_3d(self.conv3(x, self.dtype))
+            residual = norm(self.conv3(x, self.dtype))
         return _lrelu(h + residual)
 
 
@@ -167,11 +246,14 @@ class UnetrUpBlock3D(nn.Module):
     (reference: unetr_block.py:119-200)
     """
 
+    spatial = None  # the mesh on a space axis
+
     def __init__(self, in_ch: int, out_ch: int, upsample_factor: int = 2,
                  use_skip: bool = True, dtype: torch.dtype = torch.bfloat16,
                  device=None):
         super().__init__()
         self.dtype, self.use_skip = dtype, use_skip
+        self.factor = upsample_factor
         self.transp_conv = ConvTranspose3d(in_ch, out_ch, upsample_factor,
                                            device=device)
         res_in = 2 * out_ch if use_skip else out_ch
@@ -179,7 +261,12 @@ class UnetrUpBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        coarse = sp.grid_len(x)
         x = self.transp_conv(x, self.dtype)
+        if self.spatial is not None:  # twice the coarse layout -> the fine one
+            s = self.spatial.space
+            x = sp.relayout(x, sp.scale_bounds(sp.even_bounds(coarse, s), self.factor),
+                            sp.even_bounds(sp.grid_len(x), s), self.spatial)
         if self.use_skip:
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
         return self.conv_block(x)
@@ -199,14 +286,14 @@ class SubpixelHead3D(nn.Module):
         self.proj = Conv3d(in_ch, out_channels * patch**3, 3, device=device)
 
     def forward(self, x: torch.Tensor, patched: bool = False) -> torch.Tensor:
-        b, t = x.shape[0], x.shape[1]
+        b, t0, t1, t2 = x.shape[:4]  # t0: a slab's planes on a space axis
         p = self.patch
         h = self.proj(self.res(x), self.dtype)  # [B, T, T, T, p^3 * out]
         if patched:  # == patchify_3d(depth_to_space(h)), as one reshape
-            return h.reshape(b, t, t, t, p**3, self.out_channels)
-        h = h.reshape(b, t, t, t, p, p, p, self.out_channels)
+            return h.reshape(b, t0, t1, t2, p**3, self.out_channels)
+        h = h.reshape(b, t0, t1, t2, p, p, p, self.out_channels)
         h = h.permute(0, 1, 4, 2, 5, 3, 6, 7)
-        return h.reshape(b, t * p, t * p, t * p, self.out_channels)
+        return h.reshape(b, t0 * p, t1 * p, t2 * p, self.out_channels)
 
 
 class UnetOutBlock3D(nn.Module):

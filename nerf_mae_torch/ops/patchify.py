@@ -12,16 +12,18 @@ import torch
 
 
 def patchify_3d(x: torch.Tensor, patch: int) -> torch.Tensor:
-    """[B, R, R, R, C] -> [B, r, r, r, patch^3, C] with r = R // patch.
+    """[B, R, R, R, C] -> [B, r, r, r, patch^3, C] with r = R // patch
+    (each axis on its own: a slab [B, H, R, R, C] gives [B, H // patch,
+    ...]).
 
     Voxel order inside a patch is (h, w, d) row-major, matching the
     reference's einops 'n c h p w q l r -> n h w l (p q r) c'.
     """
     b, h, w, d, c = x.shape
-    r = h // patch
-    x = x.reshape(b, r, patch, r, patch, r, patch, c)
+    rh, rw, rd = h // patch, w // patch, d // patch
+    x = x.reshape(b, rh, patch, rw, patch, rd, patch, c)
     x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
-    return x.reshape(b, r, r, r, patch**3, c)
+    return x.reshape(b, rh, rw, rd, patch**3, c)
 
 
 def patchify_np(x: np.ndarray, patch: int) -> np.ndarray:
@@ -53,11 +55,13 @@ def unpatchify_3d(x: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, r * patch, r * patch, r * patch, c)
 
 
-def voxel_validity_mask(sizes: torch.Tensor, resolution: int) -> torch.Tensor:
+def voxel_validity_mask(sizes: torch.Tensor, resolution: int, planes=None) -> torch.Tensor:
     """[B, 3] per-sample true grid sizes -> [B, R, R, R] bool, True inside
-    the un-padded scene extent."""
+    the un-padded scene extent; `planes` (lo, hi) keeps those planes of
+    axis 1 (a slab on a space axis)."""
     ih = torch.arange(resolution, device=sizes.device)
-    valid_h = ih[None, :] < sizes[:, 0:1]  # [B, R]
+    lo, hi = planes or (0, resolution)
+    valid_h = ih[None, lo:hi] < sizes[:, 0:1]  # [B, R]
     valid_w = ih[None, :] < sizes[:, 1:2]
     valid_d = ih[None, :] < sizes[:, 2:3]
     return (

@@ -10,6 +10,13 @@ This is the plain path: it runs stage 3 (C > 512) of the main path, every
 block of a CPU tensor under attention_impl="auto", and every block under
 "plain". Its products go to torch.matmul, as the JAX package leaves them to
 XLA.
+
+On a space axis (`mesh`) the grid is a slab of whole windows
+(parallel.spatial.window_bounds): the pad planes exist only on the rank
+holding the global high end, the cyclic shift along axis 1 is a relayout
+with an offset (never torch.roll of the slab), and the shift mask is the
+global mask's rows for the rank's windows, a contiguous block since windows
+are x-major.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nerf_mae_torch.parallel import spatial as sp
 
 
 def window_partition_3d(
@@ -127,20 +136,48 @@ def kernel_supported(c: int, window) -> bool:
     return n % 8 == 0 and c % 8 == 0 and c <= 512
 
 
-def pad_roll_partition(x, window, pad, shift):
+def slab_windows(grid, window, mesh):
+    """On a space axis: (real bounds, padded bounds) of the window slabs of
+    axis 1 (parallel.spatial.window_bounds) and this rank's window rows
+    [first, last) of the x-major window list."""
+    real, padded = sp.window_bounds(grid[0], window[0], mesh.space)
+    a, b = padded[mesh.space_rank]
+    per_plane = -(-grid[1] // window[1]) * -(-grid[2] // window[2])
+    return real, padded, (a // window[0] * per_plane, b // window[0] * per_plane)
+
+
+def pad_roll_partition(x, window, pad, shift, mesh=None):
     """[B, G0, G1, G2, C] -> ([B, nW, N, C], counts): zero-pad, cyclic
-    shift by -shift, window partition."""
+    shift by -shift, window partition. On a space axis x is this rank's
+    slab of whole windows (G0 is the global grid[0] = G1): only the rank
+    holding the high end pads axis 1, and axis 1 rolls by a relayout."""
+    if mesh is not None:
+        real, padded, _ = slab_windows((x.shape[2],) + tuple(x.shape[2:4]), window, mesh)
+        (lo, hi), (a, b) = real[mesh.space_rank], padded[mesh.space_rank]
+        pad = ((b - a) - (hi - lo),) + tuple(pad[1:])
     if any(pad):
         x = torch.nn.functional.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
-    if sum(shift) > 0:
+    if mesh is not None:
+        if shift[0]:
+            x = sp.relayout(x, padded, padded, mesh, offset=shift[0])
+        if shift[1] or shift[2]:
+            x = torch.roll(x, (-shift[1], -shift[2]), dims=(2, 3))
+    elif sum(shift) > 0:
         x = torch.roll(x, (-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
     return window_partition_3d(x, window)
 
 
-def unpartition_unroll_crop(xw, window, counts, grid, shift):
-    """Inverse of pad_roll_partition: [B, nW, N, C] -> [B, G0, G1, G2, C]."""
+def unpartition_unroll_crop(xw, window, counts, grid, shift, mesh=None):
+    """Inverse of pad_roll_partition: [B, nW, N, C] -> [B, G0, G1, G2, C]
+    (on a space axis, this rank's slab: grid[0] is its plane count)."""
     x = window_unpartition_3d(xw, window, counts)
-    if sum(shift) > 0:
+    if mesh is not None:
+        if shift[1] or shift[2]:
+            x = torch.roll(x, (shift[1], shift[2]), dims=(2, 3))
+        if shift[0]:
+            _, padded, _ = slab_windows((grid[1],) + tuple(grid[1:]), window, mesh)
+            x = sp.relayout(x, padded, padded, mesh, offset=-shift[0])
+    elif sum(shift) > 0:
         x = torch.roll(x, tuple(shift), dims=(1, 2, 3))
     return x[:, : grid[0], : grid[1], : grid[2], :]
 
@@ -217,14 +254,18 @@ def window_attention_3d(
     window: Sequence[int],
     shift: Sequence[int],
     num_heads: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Shifted-window MSA over a [B, H, W, D, C] grid; returns the same shape
     in x.dtype. Pad-then-roll; qkv is cast to x.dtype before the q scale
-    (window_attention.py:150-154 of the JAX package); softmax in float32."""
+    (window_attention.py:150-154 of the JAX package); softmax in float32.
+    On a space axis (mesh) x is this rank's slab of whole windows of the
+    global [B, W, W, D] grid (module doc)."""
     b, h, w, d, c = x.shape
     window = tuple(window)
-    pad, padded, shift = window_geometry((h, w, d), window, shift)
-    xw, counts = pad_roll_partition(x, window, pad, shift)
+    grid = (w if mesh is not None else h, w, d)
+    pad, padded, shift = window_geometry(grid, window, shift)
+    xw, counts = pad_roll_partition(x, window, pad, shift, mesh)
     n_windows, n_tokens = xw.shape[1], xw.shape[2]
     head_dim = c // num_heads
     dt = x.dtype
@@ -243,6 +284,9 @@ def window_attention_3d(
     attn = attn + relative_position_bias(bias_table, window)[None, None]
     mask = shift_mask_tensor(padded, window, shift, x.device)
     if mask is not None:
+        if mesh is not None:  # the rows of this rank's windows
+            first, last = slab_windows(grid, window, mesh)[2]
+            mask = mask[first:last]
         attn = attn + mask[None, :, None]
     attn = torch.softmax(attn, dim=-1).to(dt)
     out = mm_f32(attn, v).to(dt)
@@ -251,4 +295,4 @@ def window_attention_3d(
     if proj_bias is not None:
         out = out + proj_bias.float()
     out = out.to(dt)
-    return unpartition_unroll_crop(out, window, counts, (h, w, d), shift)
+    return unpartition_unroll_crop(out, window, counts, (h, w, d), shift, mesh)

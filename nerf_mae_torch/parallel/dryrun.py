@@ -9,7 +9,10 @@ what each rank's function returned.
 Both run gloo ranks on the CPU at a tiny size (swin_nano, 32^3, float32).
 multichip: one MAE train step on the global batch sharded over the ranks
 (the replicas stay equal), an eval, a checkpoint round trip that reproduces
-the eval's PSNR, and a step on the patch-major input. multihost: "hosts x
+the eval's PSNR, a step on the patch-major input, and at n >= 4 (even) the
+spatial leg (__graft_entry__.py:228-256): the same first step on an
+(n/2 data x 2 space) mesh of the same ranks, its loss within 1e-3 of the
+data-parallel one. multihost: "hosts x
 local ranks" processes (LOCAL_RANK and GROUP_RANK as torchrun sets them on
 each host) each run `run_mae_pretrain.main` for one step, and exactly rank 0
 must have written the checkpoint. A worker that outlives its timeout is
@@ -159,15 +162,22 @@ def multichip_rank(n: int, ckpt_dir: str) -> Dict[str, Any]:
         psnr2 = float(trainer.eval_step(state, batch)["psnr"])
         pm = shard_batch(_global_batch(tcfg.batch_size, cfg.swin.patch_size[0]), mesh)
         _, pm_metrics = trainer.train_step(state, pm)
-        return {"loss": float(metrics["loss"]), "psnr": psnr, "psnr_restored": psnr2,
-                "replicas_equal": all(np.array_equal(replicas[0], r) for r in replicas),
-                "pm_loss": float(pm_metrics["loss"])}
+        out = {"loss": float(metrics["loss"]), "psnr": psnr, "psnr_restored": psnr2,
+               "replicas_equal": all(np.array_equal(replicas[0], r) for r in replicas),
+               "pm_loss": float(pm_metrics["loss"])}
+        if n >= 4 and n % 2 == 0:  # the spatial leg, on the same ranks
+            smesh = make_mesh(n, device="cpu", n_space=2)
+            strainer = MAETrainer(cfg, tcfg, 10, mesh=smesh)
+            _, smetrics = strainer.train_step(strainer.init(0),
+                                              shard_batch(_global_batch(tcfg.batch_size), smesh))
+            out["spatial_loss"] = float(smetrics["loss"])
+        return out
 
 
 def dryrun_multichip(n: int = 2) -> List[Dict]:
-    """n gloo ranks: a train step, an eval, a checkpoint round trip and a
-    patch-major step (module doc). Raises unless every leg holds on every
-    rank; returns each rank's numbers."""
+    """n gloo ranks: a train step, an eval, a checkpoint round trip, a
+    patch-major step and at n >= 4 the spatial leg (module doc). Raises
+    unless every leg holds on every rank; returns each rank's numbers."""
     ckpt = tempfile.mkdtemp(prefix="nerf_mae_dryrun_ckpt_")
     try:
         out = launch(f"{MODULE}:multichip_rank", n, {"n": n, "ckpt_dir": ckpt})
@@ -182,8 +192,14 @@ def dryrun_multichip(n: int = 2) -> List[Dict]:
             raise RuntimeError(f"dryrun_multichip({n}): the replicas differ after a step")
         if o["loss"] != out[0]["loss"]:
             raise RuntimeError(f"dryrun_multichip({n}): the ranks' global losses differ")
+        if "spatial_loss" in o and not (
+                abs(o["spatial_loss"] - o["loss"]) < 1e-3 * max(abs(o["loss"]), 1.0)):
+            raise RuntimeError(f"dryrun_multichip({n}): spatial ({n // 2}x2) loss "
+                               f"{o['spatial_loss']} != data-parallel loss {o['loss']}")
     print(f"dryrun_multichip({n}): ok, loss {out[0]['loss']:.4f}, psnr {out[0]['psnr']:.4f}, "
-          f"patch-major loss {out[0]['pm_loss']:.4f}", flush=True)
+          f"patch-major loss {out[0]['pm_loss']:.4f}"
+          + (f", spatial ({n // 2}x2) loss {out[0]['spatial_loss']:.4f}"
+             if "spatial_loss" in out[0] else ""), flush=True)
     return out
 
 

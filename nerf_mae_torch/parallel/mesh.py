@@ -1,15 +1,20 @@
-"""Data parallelism over torch.distributed (counterpart of the `data` axis of
-nerf_mae_tpu/parallel/mesh.py, which replaces the reference's NCCL DDP:
-nerf_mae/run_swin_mae3d.py:809-902, its DistributedSampler at :578-586).
+"""Data and grid parallelism over torch.distributed (counterpart of
+nerf_mae_tpu/parallel/mesh.py, whose `data` axis replaces the reference's
+NCCL DDP: nerf_mae/run_swin_mae3d.py:809-902, its DistributedSampler at
+:578-586; its `space` axis shards the voxel grid).
 
-A `DataMesh` is one rank's view of the data-parallel group: its rank, the
-world size, its local rank, its device and the process group. The batch is
-sharded and the parameters are replicated, as on the JAX `data` mesh:
+A `DataMesh` is one rank's view of the process group: its rank, the world
+size, its local rank, its device and the group, laid out as a row-major
+[data, space] grid (make_mesh_2d): rank r sits at data index r // S and
+space index r % S, and the S ranks of one data row form its `space_group`.
+The batch is sharded over `data`, the parameters are replicated, and with
+S > 1 every grid leaf (ndim >= 4) is cut into slabs of its axis 1 over
+`space` (parallel/spatial.py computes on them):
 
     mesh = make_mesh()                      # torchrun's env, or world size 1
     trainer = MAETrainer(mae_cfg, train_cfg, total_steps, mesh=mesh)
     state = trainer.init(seed)              # replicate(model, mesh)
-    batch = shard_batch(host_batch, mesh)   # rows [r*b, (r+1)*b) on mesh.device
+    batch = shard_batch(host_batch, mesh)   # rows [d*b, (d+1)*b), slab of the grids
     state, metrics = trainer.train_step(state, batch)  # global metrics
 
 The trainers reduce with explicit collectives, not through a
@@ -31,7 +36,8 @@ buckets) is left for later.
 With no process group (no torchrun environment and no explicit world size)
 the mesh is one rank without a group and every collective here is the
 identity. With a group, even of one rank (torchrun --nproc_per_node 1),
-every collective runs.
+every collective runs. The gradients, counts and metrics are summed over
+the whole world: a slab's gradient is a partial sum, as a row's is.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from nerf_mae_torch.parallel.spatial import grid_slab, is_spatial
 
 log = logging.getLogger(__name__)
 
@@ -70,6 +78,20 @@ class DataMesh:
     owns_group: bool = False
     collectives: int = 0
     grad_bytes: int = 0
+    space: int = 1  # the size of the space axis
+    space_group: Optional[Any] = None  # the S ranks of this rank's data row
+
+    @property
+    def data_world(self) -> int:
+        return self.world_size // self.space
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space
 
     def close(self) -> None:
         if self.group is not None:
@@ -104,7 +126,7 @@ def _local_rank(rank: int, device: str) -> int:
 def make_mesh(n_devices: Optional[int] = None, device: str = "cuda",
               backend: Optional[str] = None, rank: Optional[int] = None,
               world_size: Optional[int] = None,
-              init_method: Optional[str] = None) -> DataMesh:
+              init_method: Optional[str] = None, n_space: int = 1) -> DataMesh:
     """This rank's DataMesh.
 
     The process group is the one already initialised, else one started from
@@ -116,7 +138,12 @@ def make_mesh(n_devices: Optional[int] = None, device: str = "cuda",
     modulo the cards without it), or the CPU when asked for; asking for
     cuda without a card raises (no fallback).
     Raises when n_devices asks for more ranks than exist: a silently smaller
-    mesh would make a multi-rank run prove nothing (mesh.py:31-40)."""
+    mesh would make a multi-rank run prove nothing (mesh.py:31-40).
+    n_space > 1 lays the world out as [world / n_space, n_space]
+    (make_mesh_2d) and makes the space groups (every rank makes every group,
+    in the same order); it raises unless it divides the world."""
+    if n_space < 1:
+        raise ValueError(f"n_space must be >= 1, got {n_space}")
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
@@ -149,10 +176,45 @@ def make_mesh(n_devices: Optional[int] = None, device: str = "cuda",
     if n_devices is not None and n_devices < world_size:
         raise RuntimeError(f"make_mesh: asked for {n_devices} ranks of a world of "
                            f"{world_size}; a mesh spans the whole group")
+    if world_size % n_space:
+        raise ValueError(f"make_mesh: a space axis of {n_space} does not divide a world of "
+                         f"{world_size} ranks (start a multiple of --mesh_space processes)")
     local_rank = _local_rank(rank, device)
     dev = torch.device("cuda", local_rank) if device == "cuda" else torch.device("cpu")
     group = dist.group.WORLD if dist.is_initialized() else None
-    return DataMesh(rank, world_size, local_rank, dev, group, owns)
+    space_group = None
+    for d in range(world_size // n_space if n_space > 1 else 0):
+        g = dist.new_group(list(range(d * n_space, (d + 1) * n_space)))
+        if d == rank // n_space:
+            space_group = g
+    return DataMesh(rank, world_size, local_rank, dev, group, owns, space=n_space,
+                    space_group=space_group)
+
+
+def prepare_spatial_config(mesh: Optional[DataMesh], swin_cfg):
+    """A SwinConfig for the grid sharding (mesh.py:88-128); unchanged off a
+    space axis. attention_impl "kernel" is refused: the fused kernels take
+    whole grids, not slabs (as pallas_call has no partitioning rule);
+    "auto" becomes "plain", whose window attention the slabs partition."""
+    if not is_spatial(mesh):
+        return swin_cfg
+    if swin_cfg.attention_impl == "kernel":
+        raise ValueError(
+            "attention_impl='kernel' cannot run under spatial sharding; use 'plain' (the "
+            "window attention is partitioned over the space axis with explicit halo "
+            "exchanges and relayouts)")
+    if swin_cfg.attention_impl == "auto":
+        return dataclasses.replace(swin_cfg, attention_impl="plain")
+    return swin_cfg
+
+
+def check_token_grid(mesh: Optional[DataMesh], token_grid: int) -> None:
+    """Refuse a token grid that the space axis does not divide: the voxel
+    slabs (an even split of R = p T) must hold whole patches."""
+    if is_spatial(mesh) and token_grid % mesh.space:
+        raise ValueError(f"the token grid {token_grid} (resolution / patch) does not divide "
+                         f"over a space axis of {mesh.space}: choose --mesh_space among its "
+                         "divisors")
 
 
 def distributed(mesh: Optional[DataMesh]) -> bool:
@@ -186,19 +248,31 @@ def batch_rows(batch: int, rank: int = 0, world: int = 1) -> slice:
     return slice(rank * b, (rank + 1) * b)
 
 
+def host_slab(batch: Dict[str, np.ndarray], mesh: Optional[DataMesh]
+              ) -> Dict[str, np.ndarray]:
+    """This rank's slab (grid_slab of axis 1) of every grid leaf (ndim >=
+    4: the dense [B, R, R, R, C] grids, the patch-major [B, T, T, T, ...]
+    ones, label grids), as grid_pspec shards them; other leaves whole."""
+    if not is_spatial(mesh):
+        return batch
+    return {k: v[:, grid_slab(v.shape[1], mesh)] if v.ndim >= 4 else v
+            for k, v in batch.items()}
+
+
 def shard_batch(batch: Dict[str, np.ndarray], mesh: Optional[DataMesh],
                 transfer_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global host batch, on the mesh's device, through
+    """This rank's rows of a global host batch (its data row's), and its
+    slab of every grid leaf on a space axis, on the mesh's device, through
     the transfer of common.HostToDevice (patch-major leaves channel-flat,
     float32 grid leaves cast to transfer_dtype). Raises when the batch does
-    not divide by the world size (scripts/run_mae_pretrain.py:245)."""
+    not divide over the data axis (scripts/run_mae_pretrain.py:245)."""
     from nerf_mae_torch.common import HostToDevice  # common imports this module
 
     n = len(next(iter(batch.values())))
-    sl = batch_rows(n) if mesh is None else batch_rows(n, mesh.rank, mesh.world_size)
+    sl = batch_rows(n) if mesh is None else batch_rows(n, mesh.data_rank, mesh.data_world)
     device = torch.device("cpu") if mesh is None else mesh.device
     put = HostToDevice(device, transfer_dtype)
-    return put.ready(put({k: v[sl] for k, v in batch.items()}))
+    return put.ready(put(host_slab({k: v[sl] for k, v in batch.items()}, mesh)))
 
 
 def _flat_groups(tensors: Sequence[torch.Tensor], cap_bytes: Optional[int] = None):

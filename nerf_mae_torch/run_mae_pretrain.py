@@ -34,8 +34,14 @@ Data parallelism: under torchrun the step runs on the process group's ranks
 Each rank loads its rows of every batch, the step gives what one process
 gives on the whole batch (trainer.py), and rank 0 alone writes checkpoints,
 the metric log, --eval_json, the trace and the benchmark's line (with the
-world size, the per-rank batch and the global grids/s). --mesh_space > 1
-(the grid sharding) is not in the port yet.
+world size, the data and space axes, the per-rank batch and the global
+grids/s). --mesh_space S shards the grid too, over [world / S, S]:
+
+    torchrun --nproc_per_node 4 -m nerf_mae_torch.run_mae_pretrain \
+        --dataset synthetic --backbone_type swin_b --batch_size 2 --mesh_space 2
+
+each rank of a data row computing on its slab of axis 1 (parallel/spatial.py;
+the plain attention, as JAX runs XLA's there), --mode benchmark included.
 """
 
 from __future__ import annotations
@@ -215,8 +221,8 @@ def _main(args, mesh):
     batches = make_train_batches(
         args, device,
         lambda: mae_batch_iterator(train_ds, args.batch_size, args.resolution, seed=args.seed,
-                                   workers=args.workers, patch_major=pm, rank=mesh.rank,
-                                   world=mesh.world_size),
+                                   workers=args.workers, patch_major=pm,
+                                   rank=mesh.data_rank, world=mesh.data_world),
         corpus_iter_factory=lambda: mae_batch_iterator(
             train_ds, args.batch_size, args.resolution, shuffle=False, loop=False,
             drop_last=False, workers=args.workers, patch_major=pm), mesh=mesh)

@@ -15,7 +15,8 @@ front3d, hypersim and scannet read --features_path and --sem_feat_path.
 --mode benchmark times 20 eval steps after 3 warm-up steps and prints one
 JSON line. Under torchrun it trains data-parallel over the ranks,
 --batch_size global (common.build_mesh); the eval's confusion counts are
-summed over the ranks.
+summed over the ranks. --mesh_space S shards every grid
+(the targets too) over [world / S, S] (common.build_mesh).
 """
 
 from __future__ import annotations

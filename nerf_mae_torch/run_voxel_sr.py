@@ -13,7 +13,8 @@ input as their strided subsample; front3d, hypersim and scannet read
 "_Pretrained_Skip" variant). --mode benchmark times 20 eval steps on one
 training batch after 3 warm-up steps and prints one JSON line. Under
 torchrun it trains data-parallel over the ranks, --batch_size global
-(common.build_mesh).
+(common.build_mesh). --mesh_space S shards every grid
+(the targets too) over [world / S, S] (common.build_mesh).
 """
 
 from __future__ import annotations

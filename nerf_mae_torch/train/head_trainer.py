@@ -1,6 +1,6 @@
 """Trainers for the dense downstream heads, VoxelSR and VoxelSemantics
-(counterpart of nerf_mae_tpu/train/head_trainer.py, with its data mesh and
-without its spatial sharding).
+(counterpart of nerf_mae_tpu/train/head_trainer.py, with its [data, space]
+mesh).
 
     trainer = VoxelSRTrainer(mae_cfg, train_cfg, total_steps, "cuda",
                              out_resolution=256)
@@ -12,8 +12,9 @@ without its spatial sharding).
 A train step runs the head's training forward (stochastic depth drawn from
 a generator seeded by (seed, step), as MAETrainer seeds its own), the loss,
 the backward, the clip with its non-finite guard and an AdamW update at the
-scheduled lr; on a data-parallel mesh, as Trainer describes (the draws of
-the global batch, global counts, summed gradients, global metrics).
+scheduled lr; on a mesh, as Trainer describes (the draws of the global
+batch, global counts, summed gradients, global metrics; on a space axis
+every batch grid, the targets too, is this rank's slab).
 Batches are tensors on the trainer's device: {"grids":
 [B, R, R, R, 4], "out_grids": [B, R_out, R_out, R_out, 4]} for SR, {"grids",
 "semantics": [B, R, R, R] int labels, 0 = void} for semantics.

@@ -16,6 +16,14 @@ ranks between the backward and the clip, and the metrics returned are the
 global batch's. So N ranks give, step for step, what one process gives on
 the joined batch.
 
+On a [data, space] mesh (make_mesh(n_space=S)) the rows are a data row's
+and every grid leaf is this rank's slab of axis 1 (parallel.spatial): the
+config goes through prepare_spatial_config (the plain attention), the
+model computes on slabs (set_spatial), the draws are the data row's (the
+same on its S ranks), and the counts, gradients and metrics are summed
+over the whole world, a slab's gradient being a partial sum like a row's.
+No parameter enters a computation the S ranks repeat.
+
     trainer = MAETrainer(mae_cfg, train_cfg, total_steps, device="cuda")
     state = trainer.init(seed=0)
     state, metrics = trainer.train_step(state, batch)
@@ -47,10 +55,14 @@ from nerf_mae_torch.parallel.mesh import (
     DataMesh,
     all_reduce_grads,
     all_reduce_sum,
+    check_token_grid,
     count_sum,
     distributed,
+    is_spatial,
+    prepare_spatial_config,
     replicate,
 )
+from nerf_mae_torch.parallel.spatial import set_spatial
 from nerf_mae_torch.train.optim import (
     clip_by_global_norm,
     clip_with_nonfinite_guard,
@@ -87,10 +99,16 @@ class Trainer:
     """What the MAE and the downstream trainers share: the schedule, the
     clip, per-step generators, the optimizer update and, on a mesh, the
     replication, the reductions and the losses' count_sum hook. The device
-    is the mesh's when a mesh is given."""
+    is the mesh's when a mesh is given; on a space axis the config is
+    prepared for it (the plain attention; a token grid the axis divides)."""
 
     def __init__(self, mae_cfg: MAEConfig, train_cfg: TrainConfig,
                  total_steps: int, device="cuda", mesh: Optional[DataMesh] = None):
+        if mae_cfg is not None:  # the RCNN trainer has none
+            swin = prepare_spatial_config(mesh, mae_cfg.swin)
+            if swin is not mae_cfg.swin:
+                mae_cfg = dataclasses.replace(mae_cfg, swin=swin)
+            check_token_grid(mesh, mae_cfg.token_grid)
         self.mae_cfg = mae_cfg
         self.train_cfg = train_cfg
         self.total_steps = total_steps
@@ -101,12 +119,13 @@ class Trainer:
         self.schedule = make_schedule(train_cfg, total_steps)
         self.clip = (clip_with_nonfinite_guard if train_cfg.skip_nonfinite_updates
                      else clip_by_global_norm)
+        self.spatial = mesh if is_spatial(mesh) else None
 
     def _build_model(self) -> torch.nn.Module:
         raise NotImplementedError
 
     def _init_model(self, seed: int) -> torch.nn.Module:
-        return init_weights(self._build_model(), seed)
+        return set_spatial(init_weights(self._build_model(), seed), self.mesh)
 
     def init(self, seed: int) -> TrainState:
         model = replicate(self._init_model(seed), self.mesh)
@@ -119,13 +138,14 @@ class Trainer:
                    batch: Optional[int] = None) -> torch.Generator:
         """The step's generator of `stream`. On a mesh, given the `batch`
         rows this rank holds, a BatchGenerator: its batch-leading draws are
-        made for the global batch and sliced to this rank's rows."""
+        made for the global batch and sliced to this rank's data row (the
+        same on every rank of its space group)."""
         if batch is None or not distributed(self.mesh):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(stream_seed(seed, step, stream))
             return gen
         return batch_generator(self.device, stream_seed(seed, step, stream),
-                               self.mesh.rank * batch, self.mesh.world_size * batch)
+                               self.mesh.data_rank * batch, self.mesh.data_world * batch)
 
     def _global(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The metrics of the global batch: each rank's share of a global sum
@@ -169,7 +189,7 @@ class MAETrainer(Trainer):
             batch["grids"], deterministic, token_mask=token_mask,
             generator=generator, patched_pred=True, droppath_generator=droppath)
         loss, aux = mae_loss(pred, batch["grids"], token_mask, batch["sizes"],
-                             self.mae_cfg, self.count_sum)
+                             self.mae_cfg, self.count_sum, self.spatial)
         return loss, aux, pred, token_mask
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],

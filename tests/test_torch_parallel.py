@@ -2,7 +2,8 @@
 mesh and its refusals, shard_batch, the draws of a rank sliced from the
 draws of the global batch, the feed's rows (with augments and workers, and
 the device corpus), the reductions over gloo ranks, the dry runs (a
-checkpoint written by rank 0 only) and the drivers' --mesh_space refusal.
+checkpoint written by rank 0 only), the MAE driver on a space axis
+(--mesh_space) and detection's refusal of it.
 
 Multi-rank cases start fresh processes through parallel.dryrun.launch (one
 a rank, torchrun's environment, gloo, one thread each). This module imports
@@ -369,10 +370,36 @@ def test_dryrun_multihost_checkpoints_on_rank_0_only():
 
 # --------------------------------------------------------------- the drivers
 
-def test_drivers_refuse_mesh_space(tmp_path):
+MAE_SPACE = ["--mode", "train", "--dataset", "synthetic", "--backbone_type", "swin_nano",
+             "--resolution", "32", "--batch_size", "2", "--n_synthetic", "2", "--steps", "1",
+             "--compute_dtype", "float32", "--device", "cpu", "--workers", "0", "--prefetch",
+             "0", "--log_interval", "1"]
+
+
+def mae_driver_rank(ckpt):
+    """A launch target: run_mae_pretrain's one step with --mesh_space 2 in
+    this rank of a world of 2, then its --mode benchmark line."""
+    space = ["--mesh_space", "2", "--checkpoint_dir", ckpt]
+    bench = [a if a != "train" else "benchmark" for a in MAE_SPACE]
+    # one group for both runs: a driver that makes the group destroys it
+    with make_mesh(2, device="cpu"):
+        return (run_mae_pretrain.main([*MAE_SPACE, *space]),
+                run_mae_pretrain.main([*bench, *space]))
+
+
+def test_drivers_take_mesh_space(tmp_path):
+    """run_mae_pretrain --mesh_space 2 on 2 CPU ranks gives one process's
+    loss, and its benchmark line reports the (1 x 2) mesh; run_fcos still
+    refuses it with JAX's words."""
+    out = dryrun.launch(f"{MODULE}:mae_driver_rank", 2, {"ckpt": str(tmp_path / "space")})
+    want = run_mae_pretrain.main([*MAE_SPACE, "--checkpoint_dir", str(tmp_path / "one")])
+    for train, bench in out:
+        np.testing.assert_allclose(train["history"][0]["loss"], want["history"][0]["loss"],
+                                   rtol=1e-5)
+        assert (bench["world_size"], bench["data"], bench["space"],
+                bench["batch_per_rank"]) == (2, 1, 2, 2)
+        assert np.isfinite(bench["loss"])
     tiny = ["--dataset", "synthetic", "--backbone_type", "swin_nano", "--resolution", "32",
             "--device", "cpu", "--mesh_space", "2"]
-    with pytest.raises(SystemExit, match="not in the PyTorch port yet"):
-        run_mae_pretrain.main(tiny)
     with pytest.raises(SystemExit, match="detection trainers are data-parallel only"):
         run_fcos.main(tiny)
