@@ -163,7 +163,16 @@ Phases (any failure raises and the exit code is not 0):
      driver in one process on the plain path; no kernel launches on the
      ranks, each rank's peak memory beside one process's, the phase's
      seconds;
- 20. one JSON line of the four kernels, nvidia-smi's line, and the last line
+ 21. the headline benchmark: `python -m nerf_mae_torch.bench` at its
+     defaults (swin_b 160^3, batch 8 a card) with 5 timed steps: one JSON
+     line, phase done, a value and the MFU, its step within 15% of phase
+     7's; then a run of many steps sent SIGTERM once it times: exactly one
+     line, its exit code its value's;
+ 22. components: `nerf_mae_torch.tools.bench_components` at swin_b 160^3,
+     batch 8, 5 reps, in process: every row finite, the fused-block kernels
+     launched twice a forward (and their backward twice a forward+backward)
+     on stage pairs 0-2 and not on stage 3, the table printed;
+ 23. one JSON line of the four kernels, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 Every phase header prints the seconds since the start.
 Without a CUDA card it exits with code 1 and prints no result.
@@ -180,6 +189,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -191,6 +201,7 @@ import torch
 
 from nerf_mae_torch import (inference, kernels, run_fcos, run_mae_pretrain, run_nerf, run_rpn,
                             run_rpn_detect, run_voxel_semantics, run_voxel_sr)
+from nerf_mae_torch.tools import bench_components
 from nerf_mae_torch.common import ListDataset, load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
 from nerf_mae_torch.data import (
@@ -3808,6 +3819,144 @@ def phase_spatial(tmp, mae_ckpt, smi):
         raise AssertionError("phase 19: " + "; ".join(failed))
 
 
+
+# The headline benchmark (phase 21): python -m nerf_mae_torch.bench at its
+# defaults (swin_b 160^3, batch 8 a card), the step of phase 7's benchmark
+BENCH_REPS = 5
+BENCH_STEP_REL = 0.15  # its step against phase 7's --mode benchmark step
+BENCH_TERM_REPS = 100000  # the run cut by SIGTERM
+BENCH_TERM_WAIT_S = 240  # SIGTERM after the timed-phase marker, or after this
+BENCH_TIMEOUT_S = 420
+BENCH_SIZE_ENV = ("NERF_MAE_BENCH_PRESET", "NERF_MAE_BENCH_RESOLUTION",
+                  "NERF_MAE_BENCH_PER_CHIP_BATCH", "NERF_MAE_BENCH_SPACE",
+                  "NERF_MAE_BENCH_DEVICE_DATA", "NERF_MAE_PATCH_MAJOR", "NERF_MAE_PROFILE_DIR")
+
+
+def bench_command():
+    return [sys.executable, "-m", "nerf_mae_torch.bench"]
+
+
+def bench_env(reps):
+    """The environment of a benchmark run: the defaults' sizes, `reps` timed
+    steps."""
+    env = {k: v for k, v in os.environ.items() if k not in BENCH_SIZE_ENV}
+    return {**env, "NERF_MAE_BENCH_REPS": str(reps)}
+
+
+def json_lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def check_bench_line(line, rc):
+    """A finished run's line: done, a value, the MFU, exit code 0."""
+    if rc != 0 or line.get("phase") != "done" or not line.get("value", 0) > 0 \
+            or line.get("mfu") is None:
+        raise AssertionError(f"bench: rc {rc}, line {line}")
+
+
+def phase_bench(bench, smi):
+    """`python -m nerf_mae_torch.bench` at its defaults with BENCH_REPS
+    timed steps: one line, done, its step within BENCH_STEP_REL of phase
+    7's; then a run of BENCH_TERM_REPS steps sent SIGTERM once it times
+    (or after BENCH_TERM_WAIT_S): exactly one line, its exit code its
+    value's."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(bench_command(), cwd=REPO, env=bench_env(BENCH_REPS),
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = json_lines(proc.stdout)
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} JSON lines (rc {proc.returncode}):\n"
+                             + "\n".join((proc.stdout + proc.stderr).splitlines()[-30:]))
+    line = lines[0]
+    check_bench_line(line, proc.returncode)
+    rel = abs(line["step_ms"] - bench["step_ms"]) / bench["step_ms"]
+    log(f"  bench ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
+    log(f"  bench step {line['step_ms']:.3f} ms vs phase 7's --mode benchmark "
+        f"{bench['step_ms']:.3f} ms: rel {rel:.4f} (tol {BENCH_STEP_REL}); "
+        f"{line['value']:.4f} grids/s/chip, MFU {line['mfu']:.5f} | {smi}")
+    if rel > BENCH_STEP_REL:
+        raise AssertionError(f"bench step {line['step_ms']} ms is not phase 7's "
+                             f"{bench['step_ms']} ms")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(bench_command(), cwd=REPO, env=bench_env(BENCH_TERM_REPS),
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            deadline = time.monotonic() + BENCH_TERM_WAIT_S
+            while proc.poll() is None and time.monotonic() < deadline:
+                err.seek(0)
+                if "# timing" in err.read():
+                    time.sleep(2.0)  # a few timed steps
+                    break
+                time.sleep(0.2)
+            proc.send_signal(signal.SIGTERM)
+            stdout, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        tail = err.read().splitlines()[-20:]
+    lines = json_lines(stdout)
+    log(f"  SIGTERM run ({time.perf_counter() - t0:.1f} s): rc {proc.returncode}, "
+        f"lines {lines}")
+    if len(lines) != 1:
+        raise AssertionError(f"the SIGTERM run printed {len(lines)} lines:\n" + "\n".join(tail))
+    if proc.returncode != (0 if lines[0]["value"] > 0 else 1):
+        raise AssertionError(f"the SIGTERM run's exit code {proc.returncode} does not match "
+                             f"its value {lines[0]['value']}")
+    return line
+
+
+# Components (phase 22): tools.bench_components at the step's shapes
+COMPONENT_REPS = 5
+
+
+def phase_components(tmp):
+    """nerf_mae_torch.tools.bench_components at swin_b 160^3, batch 8,
+    COMPONENT_REPS reps: every row finite; the fused-block kernels launched
+    on stage pairs 0-2 (two forward a forward call, two forward and two
+    backward a forward+backward call), none on stage 3, and the launch
+    counter holding exactly those launches."""
+    t0 = time.perf_counter()
+    reset_launches()
+    out = bench_components.main([
+        "--preset", "swin_b", "--resolution", str(RES), "--batch", str(TRAIN_BATCH),
+        "--reps", str(COMPONENT_REPS), "--out", os.path.join(tmp, "components.json")])
+    launches = read_launches()
+    calls = COMPONENT_REPS + 2
+    want_total = {"block": 0, "block_bwd": 0, "attention": 0, "attention_bwd": 0}
+    failed = []
+    log(f"  components (ms, {out['meta']['device']}; launches a call, forward / "
+        "forward+backward):")
+    for name, row in out["rows"].items():
+        log(f"    {name:<28} fwd {row['fwd']:9.3f}  fwd+bwd {row['fwd_bwd']:9.3f}  "
+            f"{row['launches']['fwd'] or '-'} / {row['launches']['fwd_bwd'] or '-'}")
+        if not (math.isfinite(row["fwd"]) and math.isfinite(row["fwd_bwd"])):
+            failed.append(f"{name} not finite")
+        m = re.fullmatch(r"stage(\d)_pair_.*", name)
+        if m:
+            fused = int(m.group(1)) < 3
+            want = ({"fwd": {"fused_swin_block": 2.0},
+                     "fwd_bwd": {"fused_swin_block": 2.0, "fused_swin_block_bwd": 2.0}}
+                    if fused else {"fwd": {}, "fwd_bwd": {}})
+            if row["launches"] != want:
+                failed.append(f"{name} launches {row['launches']}, expected {want}")
+            if fused:
+                want_total["block"] += 4 * calls
+                want_total["block_bwd"] += 2 * calls
+        elif row["launches"] != {"fwd": {}, "fwd_bwd": {}}:
+            failed.append(f"{name} launched {row['launches']}")
+    log(f"  phase 22: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    if launches != want_total:
+        failed.append(f"launch counter {launches}, expected {want_total}")
+    if failed:
+        raise AssertionError("phase 22: " + "; ".join(failed))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3929,7 +4078,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_spatial(tmp, mae_ckpt, smi)
 
-    log(f"[20] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+        log(f"[21] headline benchmark: python -m nerf_mae_torch.bench (swin_b {RES}^3, batch "
+            f"{TRAIN_BATCH} a card, {BENCH_REPS} timed steps) beside phase 7's step, then a "
+            "run cut by SIGTERM")
+        phase_bench(bench, smi)
+
+        log(f"[22] components: nerf_mae_torch.tools.bench_components at swin_b {RES}^3, batch "
+            f"{TRAIN_BATCH}, {COMPONENT_REPS} reps, launches per row")
+        phase_components(tmp)
+
+    log(f"[23] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
+from nerf_mae_torch.convert import params_from_jax, state_dict_of
 from nerf_mae_torch.data import SceneDataset, load_split, prefetch
 from nerf_mae_torch.data.device_cache import (
     TRANSFER_DTYPES,
@@ -409,19 +410,28 @@ def profiled_steps(args, device: torch.device, steps: Iterable[int],
     yield from steps[args.log_interval:]
 
 
+def is_orbax_checkpoint(path: str) -> bool:
+    """Whether `path` is a JAX (orbax) checkpoint directory or one of its
+    steps: a step holds `state/_METADATA`."""
+    steps = [path] + [os.path.join(path, n) for n in os.listdir(path) if n.isdigit()]
+    return any(os.path.isfile(os.path.join(s, "state", "_METADATA")) for s in steps)
+
+
 def load_mae_params(path: str, mae_cfg: MAEConfig) -> Dict[str, torch.Tensor]:
     """A pretrained MAE's state dict (CPU tensors): from a checkpoint dir of
-    run_mae_pretrain (its newest step), a .pt/.pth state dict (or a dict
-    holding one under "state_dict"), or a .npz of the flattened JAX
-    SwinMAE3D tree for `mae_cfg`."""
+    run_mae_pretrain (its newest step), a .pt/.pth state dict or checkpoint
+    (a step's state.pt; convert.state_dict_of), or a .npz of the flattened
+    JAX SwinMAE3D tree for `mae_cfg`. A JAX (orbax) checkpoint directory is
+    refused: tools.orbax_to_npz turns it into that .npz."""
     if path.endswith(".npz"):
-        from nerf_mae_torch.convert import params_from_jax
-
         with np.load(path, allow_pickle=False) as f:
             return params_from_jax({k: f[k] for k in f.files}, mae_cfg)
     if path.endswith((".pt", ".pth")):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        return sd.get("state_dict", sd)
+        return dict(state_dict_of(torch.load(path, map_location="cpu", weights_only=True)))
+    if os.path.isdir(path) and is_orbax_checkpoint(path):
+        raise ValueError(
+            f"{path} is a JAX (orbax) checkpoint; convert it first with `python -m "
+            f"nerf_mae_torch.tools.orbax_to_npz {path} --out params.npz` and pass the .npz")
     return restore_checkpoint(path)["params"]
 
 

@@ -303,17 +303,27 @@ def load_weights(model, weights) -> None:
     model.load_state_dict(sd, strict=True)
 
 
+def state_dict_of(payload: Mapping) -> Mapping:
+    """The state dict in what torch.load gave: a checkpoint's `params` (a
+    step of run_mae_pretrain, {"step", "params"[, "opt_state"]}), a
+    reference checkpoint's "state_dict", or the payload itself (a bare
+    state dict)."""
+    if "params" in payload and "step" in payload:
+        return payload["params"]
+    return payload.get("state_dict", payload)
+
+
 def load_weights_file(model, path: str) -> None:
     """`.npz`: the flattened JAX parameter tree, through params_from_jax;
-    `.pt`/`.pth`: a state dict of the port or of the reference (a checkpoint
-    dict holding it under "state_dict" is also taken)."""
+    `.pt`/`.pth`: a state dict of the port or of the reference, or a
+    checkpoint holding one (state_dict_of)."""
     if path.endswith(".npz"):
         with np.load(path, allow_pickle=False) as f:
             flat = {k: f[k] for k in f.files}
         load_weights(model, params_from_jax(flat, model.cfg))
         return
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    load_weights(model, sd.get("state_dict", sd))
+    load_weights(model, state_dict_of(torch.load(path, map_location="cpu",
+                                                 weights_only=True)))
 
 
 def adamw_state_from_jax(mu: Mapping, nu: Mapping, count: int, model,

@@ -8,12 +8,17 @@ beside target / masked / pred PLYs, and --save_features adds the 4-scale
 encoder pyramid as <scene>_features.npz. Each scene is one batch of 1, as
 in the JAX script, and every scene gets the mask drawn from --seed.
 
-Weights: --params takes a .npz of the flattened JAX parameter tree (see
-README) or a .pt state dict of the port or of the reference; --init_seed
-builds random weights instead. Runs on the CUDA card unless --device cpu.
+Weights: --mae_checkpoint takes what the JAX script's flag takes, the
+checkpoint directory of the port's run_mae_pretrain (its newest step), or
+a step's state.pt, a .pt state dict or a .npz of the flattened JAX
+parameter tree (common.load_mae_params; a JAX orbax directory goes through
+tools.orbax_to_npz first); --params takes the .npz or a .pt state dict of
+the port or of the reference; --init_seed builds random weights instead.
+Runs on the CUDA card unless --device cpu.
 
-    python -m nerf_mae_torch.inference --scene_dir scenes/ --init_seed 0 \
-        --backbone_type swin_b --out_dir out/ --save_features
+    python -m nerf_mae_torch.inference --scene_dir scenes/ \
+        --mae_checkpoint checkpoints/mae --backbone_type swin_b --out_dir out/ \
+        --save_features
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ import time
 import numpy as np
 import torch
 
+from nerf_mae_torch.common import load_mae_params
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig
-from nerf_mae_torch.convert import load_weights_file
+from nerf_mae_torch.convert import load_weights, load_weights_file
 from nerf_mae_torch.data import density_to_alpha, scannet_density_to_alpha
 from nerf_mae_torch.models.mae import (
     SwinMAE3D,
@@ -48,6 +54,9 @@ def parse_args(argv=None):
                    help="batch over every .npz in this folder, passing each "
                         "file's metadata keys through to the output npz")
     w = p.add_mutually_exclusive_group(required=True)
+    w.add_argument("--mae_checkpoint", default=None,
+                   help="run_mae_pretrain checkpoint dir (newest step), a step's "
+                        "state.pt, a .pt state dict or a flat JAX .npz")
     w.add_argument("--params", default=None,
                    help=".npz of the flattened JAX params, or a .pt state dict")
     w.add_argument("--init_seed", default=None, type=int,
@@ -81,7 +90,9 @@ def build_model(args, device: torch.device) -> SwinMAE3D:
         compute_dtype=args.compute_dtype,
     )
     model = SwinMAE3D(cfg, device=device)
-    if args.params:
+    if args.mae_checkpoint:
+        load_weights(model, load_mae_params(args.mae_checkpoint, cfg))
+    elif args.params:
         load_weights_file(model, args.params)
     else:
         init_weights(model, args.init_seed)

@@ -5,7 +5,8 @@ candidates, host scan and parameter groups, phase 15's RPN and RCNN
 work counts, configurations and pairwise IoU, and phase 16's feed
 helpers: the bytes a step of each feed, the loss agreement of the feeds,
 the scenes on disk and the e2e stages' flags, and phase 17's NeRF work
-counts and the check that the extracted density sits on the boxes."""
+counts and the check that the extracted density sits on the boxes, and
+phase 21's benchmark environment and line check."""
 
 import chip_smoke
 import numpy as np
@@ -311,3 +312,23 @@ def test_phase18_torchrun_command_and_mesh_report():
             "reduced\nother\n")
     assert chip_smoke.mesh_report(text) == [(0, 1, "nccl", 19, 2902048)]
     assert chip_smoke.mesh_report("no mesh") == []
+
+
+def test_phase21_runs_the_bench_at_its_defaults_and_checks_the_line(monkeypatch):
+    """Phase 21's bench runs drop every size override of the environment
+    (the defaults: swin_b 160^3, batch 8 a card) and set the reps; a line
+    passes only when done, with a value, the MFU and exit code 0."""
+    monkeypatch.setenv("NERF_MAE_BENCH_PRESET", "swin_nano")
+    monkeypatch.setenv("NERF_MAE_BENCH_DEVICE_DATA", "1")
+    env = chip_smoke.bench_env(5)
+    assert env["NERF_MAE_BENCH_REPS"] == "5"
+    assert not set(chip_smoke.BENCH_SIZE_ENV) & set(env)
+    assert chip_smoke.bench_command()[1:] == ["-m", "nerf_mae_torch.bench"]
+    good = {"phase": "done", "value": 51.8, "mfu": 0.118, "step_ms": 154.3}
+    chip_smoke.check_bench_line(good, 0)
+    for line, rc in ((good, 1), ({**good, "phase": "timed_batch8"}, 0),
+                     ({**good, "value": 0.0}, 0), ({**good, "mfu": None}, 0)):
+        with pytest.raises(AssertionError, match="bench"):
+            chip_smoke.check_bench_line(line, rc)
+    text = '# timing batch=8 reps=5\n{"value": 1.0}\nlog line\n{"value": 2.0}\n'
+    assert chip_smoke.json_lines(text) == [{"value": 1.0}, {"value": 2.0}]
