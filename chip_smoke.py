@@ -163,6 +163,16 @@ Phases (any failure raises and the exit code is not 0):
      driver in one process on the plain path; no kernel launches on the
      ranks, each rank's peak memory beside one process's, the phase's
      seconds;
+ 20. taking over a JAX run: `run_mae_pretrain.main` trains swin_b 160^3 at
+     batch 8 for 2 steps and saves; that state is written as the JAX-layout
+     state .npz of `tools.orbax_to_npz --state` (convert.mae_params_to_jax on
+     the parameters and on both AdamW moments, the update count, the step);
+     `run_mae_pretrain.main --checkpoint` takes 2 more steps from the .npz
+     and, separately, from the port's own checkpoint: 22 + 22 launches a
+     resumed step, the losses, the parameters and every AdamW state entry
+     bitwise equal; then each restore alone is timed, and the two restored
+     states' steps beside a fresh state's (2 rounds of 5 synchronized steps
+     a state, taking turns);
  21. the headline benchmark: `python -m nerf_mae_torch.bench` at its
      defaults (swin_b 160^3, batch 8 a card) with 5 timed steps: one JSON
      line, phase done, a value and the MFU, its step within 15% of phase
@@ -3820,6 +3830,175 @@ def phase_spatial(tmp, mae_ckpt, smi):
 
 
 
+# Taking over a JAX run (phase 20): run_mae_pretrain resumed from a JAX-layout
+# state .npz against the same state resumed from the port's own checkpoint
+RESUME_STEPS = 2  # steps before the save, and after each resume
+RESUME_TIMED = 5  # synchronized steps a round, timed after a restore from the .npz
+RESUME_ROUNDS = 2  # rounds in which the restored states and a fresh one take turns
+
+
+def resume_argv(extra):
+    return ["--mode", "train", "--dataset", "synthetic", "--backbone_type", "swin_b",
+            "--resolution", str(RES), "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+            "--n_synthetic", str(TRAIN_BATCH), "--seed", "0", "--log_interval", "1",
+            "--eval_interval", "1000000", "--ckpt_interval", "1000000", *extra]
+
+
+def write_jax_state(ckpt, path, cfg):
+    """The newest step of a run_mae_pretrain checkpoint as the state .npz
+    that `tools.orbax_to_npz --state` writes of a JAX run: params and AdamW
+    moments in the JAX layout (convert.mae_params_to_jax, a relayout per
+    leaf), the update count as opt_state/count and schedule_count, and the
+    step. Returns the step."""
+    from nerf_mae_torch.convert import mae_params_to_jax
+    from nerf_mae_torch.train.checkpoint import restore_checkpoint
+
+    restored = restore_checkpoint(ckpt)
+    opt = restored["opt_state"]
+    names = [n for n, _ in SwinMAE3D(cfg, device="meta").named_parameters()]
+    index = opt["param_groups"][0]["params"]  # one group, the model's parameter order
+    flat = {}
+    for prefix, tree in (
+            ("params/", restored["params"]),
+            ("opt_state/mu/", {n: opt["state"][i]["exp_avg"] for n, i in zip(names, index)}),
+            ("opt_state/nu/", {n: opt["state"][i]["exp_avg_sq"] for n, i in zip(names, index)})):
+        flat.update({prefix + k: v for k, v in mae_params_to_jax(tree, cfg).items()})
+    count = np.int32(opt["state"][index[0]]["step"].item())
+    np.savez(path, **flat, **{"opt_state/count": count, "schedule_count": count,
+                              "step": np.int64(restored["step"])})
+    return int(restored["step"])
+
+
+def state_differences(a, b):
+    """Max |a - b| over the parameters and over each AdamW state entry of
+    two run_mae_pretrain checkpoints (0 where bitwise equal)."""
+    out = {"params": max((a["params"][k].float() - b["params"][k].float()).abs().max().item()
+                         for k in a["params"])}
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+        out[key] = max((sa[key].float() - b["opt_state"]["state"][i][key].float()).abs().max()
+                       .item() for i, sa in a["opt_state"]["state"].items())
+    return out
+
+
+def timed_restored_steps(dev, sources, cfg):
+    """Restores each of `sources` ({name: a --checkpoint path}) into a
+    fresh MAETrainer's state as run_mae_pretrain does (common.restore_state,
+    train mode), each restore timed with a synchronize; then, beside a
+    state fresh from the seed, one warm-up step each and RESUME_ROUNDS
+    rounds of RESUME_TIMED synchronized steps on one resident batch, the
+    states taking turns. Returns ({name: restore s}, {name or "fresh":
+    step ms median}, {name or "fresh": launches in its last round})."""
+    from nerf_mae_torch.common import restore_state
+    from nerf_mae_torch.train.trainer import MAETrainer
+
+    trainer = MAETrainer(cfg, TrainConfig(batch_size=TRAIN_BATCH), 4 * RESUME_STEPS, dev)
+    states, restore_s = {"fresh": trainer.init(0)}, {}
+    for name, path in sources.items():
+        args = run_mae_pretrain.parse_args(resume_argv(["--checkpoint", path]))
+        state = trainer.init(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[name] = restore_state(args, trainer, state)
+        torch.cuda.synchronize()
+        restore_s[name] = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    t = RES // 4  # the feed's patch-major layout, channel-flat
+    batch = {"grids": torch.rand((TRAIN_BATCH, t, t, t, 64 * 4), generator=gen, device=dev),
+             "sizes": torch.full((TRAIN_BATCH, 3), RES, device=dev)}
+    times = {k: [] for k in states}
+    launches = {}
+    for state in states.values():
+        trainer.train_step(state, batch)
+    for _ in range(RESUME_ROUNDS):
+        for k, state in states.items():
+            reset_launches()
+            for _ in range(RESUME_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t) * 1e3)
+            launches[k] = read_launches()
+    del trainer, states, batch
+    torch.cuda.empty_cache()
+    return restore_s, {k: statistics.median(v) for k, v in times.items()}, launches
+
+
+def phase_resume(dev, tmp, smi):
+    """Phase 20: run_mae_pretrain (swin_b 160^3, batch 8, bf16) takes
+    RESUME_STEPS steps and saves; the state goes into a JAX-layout state
+    .npz (write_jax_state); run_mae_pretrain --checkpoint then takes
+    RESUME_STEPS more steps from the .npz and, separately, from the port's
+    own checkpoint. Gate: each resumed step launches kernels #1 and #2 22
+    times; the losses, the parameters and every AdamW state entry of the
+    two resumes are bitwise equal (the same state, draws and batches, and
+    the MAE step is deterministic: phase 16's feeds repeat it bitwise).
+    Then each restore is timed alone, and the two restored states' steps
+    beside a fresh state's."""
+    t0 = time.perf_counter()
+    cfg = swin_b_cfg()
+    ckpt = os.path.join(tmp, "resume_from")
+    first = run_mae_pretrain.main(resume_argv(["--steps", str(RESUME_STEPS),
+                                               "--checkpoint_dir", ckpt]))
+    npz = os.path.join(tmp, "jax_state.npz")
+    t = time.perf_counter()
+    step = write_jax_state(ckpt, npz, cfg)
+    log(f"  {RESUME_STEPS} steps (losses {[h['loss'] for h in first['history']]}); the JAX-"
+        f"layout state of step {step} written in {time.perf_counter() - t:.1f} s "
+        f"({os.path.getsize(npz) / 2**30:.3f} GiB)")
+
+    def resume(tag, source):
+        out_dir = os.path.join(tmp, f"resumed_{tag}")
+        reset_launches()
+        t = time.perf_counter()
+        out = run_mae_pretrain.main(resume_argv([
+            "--steps", str(2 * RESUME_STEPS), "--checkpoint", source,
+            "--checkpoint_dir", out_dir]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        want = 22 * RESUME_STEPS
+        hist = out["history"]
+        ms = [TRAIN_BATCH / h["grids_per_sec"] * 1e3 for h in hist]
+        log(f"  resumed from the {tag} state: steps {[h['step'] for h in hist]}, losses "
+            f"{[h['loss'] for h in hist]}, host ms a step (data included) "
+            f"{[round(m, 3) for m in ms]}, launches {launches}, run {wall:.1f} s | {smi}")
+        if (launches["block"], launches["block_bwd"]) != (want, want):
+            raise AssertionError(f"the {tag} resume launched {launches}, expected {want} "
+                                 "fused-block forward and backward")
+        if [h["step"] for h in hist] != list(range(step + 1, step + RESUME_STEPS + 1)):
+            raise AssertionError(f"the {tag} resume ran steps {[h['step'] for h in hist]}")
+        from nerf_mae_torch.train.checkpoint import restore_checkpoint
+
+        final = restore_checkpoint(out_dir)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return [h["loss"] for h in hist], final
+
+    jax_losses, jax_final = resume("JAX-layout .npz", npz)
+    port_losses, port_final = resume("port's own", ckpt)
+    diff = state_differences(jax_final, port_final)
+    loss_diff = max(abs(a - b) for a, b in zip(jax_losses, port_losses))
+    log(f"  JAX-layout resume against the port's own: loss max |diff| {loss_diff}, state "
+        f"max |diff| {diff}")
+    if loss_diff or any(diff.values()):
+        raise AssertionError(f"the JAX-layout resume differs from the port's own ({diff}, "
+                             f"loss {loss_diff})")
+    del jax_final, port_final
+    restore_s, step_ms, launches = timed_restored_steps(
+        dev, {"JAX-layout .npz": npz, "port's own": ckpt}, cfg)
+    log("  restore alone (read, relayout, load_state_dict): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in restore_s.items()) + f"; then {RESUME_ROUNDS} x "
+        f"{RESUME_TIMED} steps a state, the restored ones and one fresh from the seed taking "
+        "turns, median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+        + f" | {smi}")
+    want = 22 * RESUME_TIMED
+    if any((n["block"], n["block_bwd"]) != (want, want) for n in launches.values()):
+        raise AssertionError(f"timed steps launched {launches}, expected {want} each a round")
+    log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+    return {"restore_s": restore_s, "step_ms": step_ms}
+
+
 # The headline benchmark (phase 21): python -m nerf_mae_torch.bench at its
 # defaults (swin_b 160^3, batch 8 a card), the step of phase 7's benchmark
 BENCH_REPS = 5
@@ -4077,6 +4256,12 @@ def main() -> int:
             "each step against one process on the plain path")
         torch.cuda.empty_cache()
         phase_spatial(tmp, mae_ckpt, smi)
+
+        log(f"[20] taking over a JAX run: run_mae_pretrain at swin_b {RES}^3, batch "
+            f"{TRAIN_BATCH}, {RESUME_STEPS} steps, then {RESUME_STEPS} more from a JAX-layout "
+            "state .npz and from the port's own checkpoint, compared; the restore timed")
+        torch.cuda.empty_cache()
+        phase_resume(dev, tmp, smi)
 
         log(f"[21] headline benchmark: python -m nerf_mae_torch.bench (swin_b {RES}^3, batch "
             f"{TRAIN_BATCH} a card, {BENCH_REPS} timed steps) beside phase 7's step, then a "

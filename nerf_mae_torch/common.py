@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
-from nerf_mae_torch.convert import params_from_jax, state_dict_of
+from nerf_mae_torch.convert import jax_params, params_from_jax, read_npz, state_dict_of
 from nerf_mae_torch.data import SceneDataset, load_split, prefetch
 from nerf_mae_torch.data.device_cache import (
     TRANSFER_DTYPES,
@@ -61,7 +61,7 @@ from nerf_mae_torch.parallel.mesh import (
     make_mesh,
     shard_batch,
 )
-from nerf_mae_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_mae_torch.train.checkpoint import load_jax_state, restore_checkpoint, save_checkpoint
 from nerf_mae_torch.utils import MetricLogger
 
 log = logging.getLogger("nerf_mae_torch")
@@ -82,11 +82,14 @@ def add_common_flags(p: argparse.ArgumentParser,
     p.add_argument("--compute_dtype", default="bfloat16")
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--checkpoint_dir", default="checkpoints/task")
-    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="resume or evaluate: a checkpoint dir of this driver, or a JAX "
+                        "state .npz (tools.orbax_to_npz --state)")
     p.add_argument("--mae_checkpoint", default=None,
                    help="pretrained MAE to graft the trunk and decoder4/3/2 from: "
                         "a checkpoint dir of run_mae_pretrain, a .pt state dict, "
-                        "or a .npz of the flattened JAX parameter tree")
+                        "or a .npz of the flattened JAX parameter tree (tools.orbax_to_npz, "
+                        "with or without --state)")
     p.add_argument("--log_interval", default=10, type=int)
     p.add_argument("--eval_interval", default=200, type=int)
     p.add_argument("--ckpt_interval", default=500, type=int)
@@ -417,38 +420,61 @@ def is_orbax_checkpoint(path: str) -> bool:
     return any(os.path.isfile(os.path.join(s, "state", "_METADATA")) for s in steps)
 
 
+def refuse_orbax(path: str) -> None:
+    """Raise on a JAX (orbax) checkpoint directory, naming the tool that
+    turns it into the .npz the port reads."""
+    if os.path.isdir(path) and is_orbax_checkpoint(path):
+        raise ValueError(
+            f"{path} is a JAX (orbax) checkpoint; convert it where it was written with "
+            f"`python -m nerf_mae_torch.tools.orbax_to_npz {path} --state --out state.npz` "
+            "and pass the .npz")
+
+
 def load_mae_params(path: str, mae_cfg: MAEConfig) -> Dict[str, torch.Tensor]:
     """A pretrained MAE's state dict (CPU tensors): from a checkpoint dir of
     run_mae_pretrain (its newest step), a .pt/.pth state dict or checkpoint
-    (a step's state.pt; convert.state_dict_of), or a .npz of the flattened
-    JAX SwinMAE3D tree for `mae_cfg`. A JAX (orbax) checkpoint directory is
-    refused: tools.orbax_to_npz turns it into that .npz."""
+    (a step's state.pt; convert.state_dict_of), or an .npz of
+    tools.orbax_to_npz (the flattened JAX SwinMAE3D tree for `mae_cfg`, or
+    the `params/` part of a --state .npz). A JAX (orbax) checkpoint
+    directory is refused, naming the tool."""
     if path.endswith(".npz"):
-        with np.load(path, allow_pickle=False) as f:
-            return params_from_jax({k: f[k] for k in f.files}, mae_cfg)
+        return params_from_jax(jax_params(read_npz(path)), mae_cfg)
     if path.endswith((".pt", ".pth")):
         return dict(state_dict_of(torch.load(path, map_location="cpu", weights_only=True)))
-    if os.path.isdir(path) and is_orbax_checkpoint(path):
-        raise ValueError(
-            f"{path} is a JAX (orbax) checkpoint; convert it first with `python -m "
-            f"nerf_mae_torch.tools.orbax_to_npz {path} --out params.npz` and pass the .npz")
+    refuse_orbax(path)
     return restore_checkpoint(path)["params"]
+
+
+def restore_state(args, trainer, state):
+    """Restore --checkpoint into `state`: a checkpoint
+    dir of the port's drivers (its newest step) or a JAX state .npz
+    (tools.orbax_to_npz --state; train/checkpoint.load_jax_state through
+    trainer.params_from_jax). The parameters load strictly; in train mode
+    the optimizer state and the step too (the schedule then goes on from
+    the optimizer's update count). A JAX orbax directory is refused."""
+    path = args.checkpoint
+    if path.endswith(".npz"):
+        restored = load_jax_state(path, state.model, state.optimizer, trainer.params_from_jax)
+    else:
+        refuse_orbax(path)
+        restored = restore_checkpoint(path)
+    state.model.load_state_dict(restored["params"])
+    if args.mode == "train" and "opt_state" in restored:
+        state.optimizer.load_state_dict(restored["opt_state"])
+        state.step = int(restored["step"])
+    log.info("restored step %d from %s", restored["step"], path)
+    return state
 
 
 def prepare_state(args, trainer, mae_cfg: MAEConfig):
     """init from --seed, then --mae_checkpoint grafted, then --checkpoint
-    restored (with the optimizer state and step in train mode)."""
+    restored (restore_state)."""
     state = trainer.init(args.seed)
     if args.mae_checkpoint:
         state = trainer.graft_mae(state, load_mae_params(args.mae_checkpoint, mae_cfg))
         log.info("grafted the MAE's weights from %s", args.mae_checkpoint)
     if args.checkpoint:
-        restored = restore_checkpoint(args.checkpoint)
-        state.model.load_state_dict(restored["params"])
-        if args.mode == "train" and "opt_state" in restored:
-            state.optimizer.load_state_dict(restored["opt_state"])
-            state.step = int(restored["step"])
-        log.info("restored step %d from %s", restored["step"], args.checkpoint)
+        state = restore_state(args, trainer, state)
     return state
 
 

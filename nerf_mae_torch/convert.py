@@ -15,10 +15,15 @@ same way (`base/...` as the MAE, `encoder1/conv*`, `decoder1/...`,
 `voxel_out/conv`, `sem_out/conv`), and `det_params_from_jax`,
 `rpn_params_from_jax` and `rcnn_params_from_jax` the FCOS detector, the
 anchor RPN and the RCNN stage, and `nerf_params_from_jax` a per-scene
-NeRF's {coarse, fine, cam}. `adamw_state_from_jax` carries an optax
-adamw state (the moments are trees
-shaped like the parameters, so they map the same way) into the port's
-torch.optim.AdamW.
+NeRF's {coarse, fine, cam}. `mae_params_to_jax` is the inverse of
+`params_from_jax`.
+
+Every leaf mapping is a pure relayout (a transpose or an axis permutation
+and flip), one JAX leaf to one port tensor, and `_convert` holds every
+mapping to that. So the optax adamw moments, trees shaped like the
+parameters, map elementwise through the same family function:
+`adamw_state_dict` turns them into a torch.optim.AdamW state dict for any
+model family (`adamw_state_from_jax` loads it).
 """
 
 from __future__ import annotations
@@ -45,6 +50,14 @@ def _conv(w):
 
 def _convT(w):
     return np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
+
+
+# each relayout and its inverse (port layout -> JAX layout)
+_RELAYOUTS = {
+    _lin: _lin,
+    _conv: lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
+    _convT: lambda w: np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1],
+}
 
 
 _BLOCK = {
@@ -131,6 +144,9 @@ def expected_keys(cfg: MAEConfig) -> set:
 
 
 def _convert(tree_or_flat: Mapping, map_key, want: set) -> Dict[str, torch.Tensor]:
+    """Map every leaf; raises on an unknown leaf, a missing or unexpected
+    port key, and on a mapping that is not a pure relayout of one leaf
+    (which could not carry the optimizer's moments)."""
     flat = flatten_tree(tree_or_flat)
     sd = {}
     for path, value in flat.items():
@@ -139,8 +155,14 @@ def _convert(tree_or_flat: Mapping, map_key, want: set) -> Dict[str, torch.Tenso
             name, fn = map_key(path)
         except KeyError:
             raise KeyError(f"unknown JAX parameter {path!r}") from None
+        if fn is not None and fn not in _RELAYOUTS:
+            raise ValueError(f"{path!r} -> {name!r} is not a relayout")
+        if name in sd:
+            raise ValueError(f"two JAX leaves map to {name!r} (the second: {path!r})")
         value = np.asarray(value, np.float32)
-        sd[name] = torch.from_numpy(np.array(fn(value) if fn else value))
+        # C order: np.array would keep a relayout's strides, and the AdamW
+        # step takes a slower path on moments laid out unlike their parameter
+        sd[name] = torch.from_numpy(np.ascontiguousarray(fn(value) if fn else value))
     _check_keys(sd, want)
     return sd
 
@@ -150,6 +172,62 @@ def params_from_jax(tree_or_flat: Mapping, cfg: MAEConfig) -> Dict[str, torch.Te
     with or without a leading "params" level) -> the port's state_dict
     (CPU float32 tensors). Raises on a missing or unknown parameter."""
     return _convert(tree_or_flat, _map_key, expected_keys(cfg))
+
+
+def _unmap_decoder_leaf(rest: str, res_prefix: str) -> Tuple[str, Optional[Callable]]:
+    """_decoder_leaf's inverse: a port up block or subpixel head leaf ->
+    (its JAX path under the block, the relayout it went through)."""
+    m = re.fullmatch(r"(transp_conv|proj)\.(weight|bias)", rest)
+    if m:
+        leaf = "kernel" if m.group(2) == "weight" else "bias"
+        fn = (_convT if m.group(1) == "transp_conv" else _conv) if leaf == "kernel" else None
+        return f"{'up' if m.group(1) == 'transp_conv' else 'proj'}/{leaf}", fn
+    m = re.fullmatch(re.escape(res_prefix) + r"\.(conv\d)\.(weight|bias)", rest)
+    if m:
+        if m.group(2) == "weight":
+            return f"res/{m.group(1)}/kernel", _conv
+        return f"res/{m.group(1)}/bias", None
+    raise KeyError(rest)
+
+
+def _unmap_key(name: str) -> Tuple[str, Optional[Callable]]:
+    """_map_key's inverse: a port SwinMAE3D key -> (JAX path, relayout)."""
+    top = {port: (path, fn) for path, (port, fn) in _TOP.items()}
+    if name in top:
+        return top[name]
+    m = re.fullmatch(r"stages\.(\d+)\.(\d+)\.(.+)", name)
+    if m:
+        s, j, leaf = int(m.group(1)), int(m.group(2)), m.group(3)
+        if s > 0 and j == 0:
+            path, fn = {port: (p, f) for p, (port, f) in _MERGE.items()}[leaf]
+            return f"encoder/merge{s}/{path}", fn
+        path, fn = {port: (p, f) for p, (port, f) in _BLOCK.items()}[leaf]
+        return f"encoder/stage{s}_block{j - (1 if s > 0 else 0)}/{path}", fn
+    m = re.fullmatch(r"(decoder\d)\.(.+)", name)
+    if m:
+        path, fn = _unmap_decoder_leaf(m.group(2), "conv_block")
+        return f"{m.group(1)}/{path}", fn
+    m = re.fullmatch(r"subpixel_head\.(.+)", name)
+    if m:
+        path, fn = _unmap_decoder_leaf(m.group(1), "res")
+        return f"subpixel_head/{path}", fn
+    raise KeyError(name)
+
+
+def mae_params_to_jax(state_dict: Mapping, cfg: MAEConfig) -> Dict[str, np.ndarray]:
+    """params_from_jax's inverse: a port SwinMAE3D state dict (or a dict of
+    tensors shaped like it, such as AdamW's moments) -> the "/"-flat JAX
+    tree (float32 numpy, no leading "params"). Raises on a missing or
+    unknown key."""
+    _check_keys({k: None for k in state_dict if not _DERIVED.search(k)}, expected_keys(cfg))
+    flat = {}
+    for name, value in state_dict.items():
+        if _DERIVED.search(name):
+            continue
+        path, fn = _unmap_key(name)
+        value = np.asarray(torch.as_tensor(value).detach().cpu().float().numpy())
+        flat[path] = np.ascontiguousarray(_RELAYOUTS[fn](value) if fn else value)
+    return flat
 
 
 def _map_head_key(path: str) -> Tuple[str, Optional[Callable]]:
@@ -313,31 +391,80 @@ def state_dict_of(payload: Mapping) -> Mapping:
     return payload.get("state_dict", payload)
 
 
+def read_npz(path: str) -> Dict[str, np.ndarray]:
+    """Every array of an .npz (no pickles)."""
+    with np.load(path, allow_pickle=False) as f:
+        return {k: f[k] for k in f.files}
+
+
+def jax_params(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The parameter tree in a tools.orbax_to_npz .npz: the `params/` part
+    of a state .npz (--state), or the whole of a params .npz."""
+    if "step" not in flat:
+        return dict(flat)
+    return {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
+
+
 def load_weights_file(model, path: str) -> None:
-    """`.npz`: the flattened JAX parameter tree, through params_from_jax;
-    `.pt`/`.pth`: a state dict of the port or of the reference, or a
-    checkpoint holding one (state_dict_of)."""
+    """`.npz`: the flattened JAX parameter tree (tools.orbax_to_npz, with or
+    without --state), through params_from_jax; `.pt`/`.pth`: a state dict
+    of the port or of the reference, or a checkpoint holding one
+    (state_dict_of)."""
     if path.endswith(".npz"):
-        with np.load(path, allow_pickle=False) as f:
-            flat = {k: f[k] for k in f.files}
-        load_weights(model, params_from_jax(flat, model.cfg))
+        load_weights(model, params_from_jax(jax_params(read_npz(path)), model.cfg))
         return
     load_weights(model, state_dict_of(torch.load(path, map_location="cpu",
                                                  weights_only=True)))
 
 
-def adamw_state_from_jax(mu: Mapping, nu: Mapping, count: int, model,
-                         optimizer) -> None:
-    """Load optax adamw moments into `optimizer` (a torch.optim.AdamW over
-    model.parameters()): `mu`/`nu` are the ScaleByAdamState trees (nested or
+def adamw_state_dict(mu: Mapping, nu: Mapping, count: int, model, optimizer,
+                     from_jax: Optional[Callable[[Mapping], Mapping]] = None) -> Dict:
+    """An optax adamw state as a state dict of `optimizer` (a
+    torch.optim.AdamW over parameters of `model`), ready for its
+    load_state_dict: `mu` / `nu` are the ScaleByAdamState trees (nested or
     "/"-flat, as numpy) and `count` its update count, which becomes each
-    parameter's step."""
-    cfg = model.cfg
-    m = params_from_jax(mu, cfg)
-    v = params_from_jax(nu, cfg)
-    for name, prm in model.named_parameters():
-        optimizer.state[prm] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": m[name].to(prm.device).clone(),
-            "exp_avg_sq": v[name].to(prm.device).clone(),
-        }
+    parameter's step. `from_jax` is the model family's parameter mapping
+    (params_from_jax for the MAE by default; head_, det_, rpn_ or
+    rcnn_params_from_jax with their configs bound); each moment maps
+    through it as its parameter does (a relayout, so elementwise).
+
+    Every parameter the optimizer holds gets its moments; a parameter of
+    `model` outside the optimizer (a frozen one) gets none. A missing or
+    left-over moment, or one of another shape, raises and names it."""
+    if from_jax is None:
+        from_jax = lambda tree: params_from_jax(tree, model.cfg)  # noqa: E731
+    moments = {}
+    for what, tree in (("mu", mu), ("nu", nu)):
+        try:
+            moments[what] = from_jax(tree)
+        except KeyError as e:
+            raise KeyError(f"opt_state {what}: {e.args[0]}") from None
+    names = {id(p): n for n, p in model.named_parameters()}
+    held = {names.get(id(p)) for g in optimizer.param_groups for p in g["params"]}
+    if None in held:
+        raise ValueError("the optimizer holds a parameter that is not the model's")
+    for what, m in moments.items():
+        left = sorted(set(m) - held)
+        if left:
+            raise KeyError(f"opt_state {what}: moments of {left[:8]}, which the "
+                           "optimizer does not hold")
+    packed = optimizer.state_dict()
+    state = {}
+    for group, packed_group in zip(optimizer.param_groups, packed["param_groups"]):
+        for p, index in zip(group["params"], packed_group["params"]):
+            name = names[id(p)]
+            for what in ("mu", "nu"):
+                if tuple(moments[what][name].shape) != tuple(p.shape):
+                    raise ValueError(f"opt_state {what} {name!r}: shape "
+                                     f"{tuple(moments[what][name].shape)}, the "
+                                     f"parameter's {tuple(p.shape)}")
+            state[index] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                            "exp_avg": moments["mu"][name],
+                            "exp_avg_sq": moments["nu"][name]}
+    return {"state": state, "param_groups": packed["param_groups"]}
+
+
+def adamw_state_from_jax(mu: Mapping, nu: Mapping, count: int, model, optimizer,
+                         from_jax: Optional[Callable[[Mapping], Mapping]] = None) -> None:
+    """Load an optax adamw state into `optimizer` (adamw_state_dict)."""
+    optimizer.load_state_dict(adamw_state_dict(mu, nu, count, model, optimizer, from_jax))

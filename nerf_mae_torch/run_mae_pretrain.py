@@ -67,6 +67,7 @@ from nerf_mae_torch.common import (
     metric_logger,
     profile_dir,
     profiled_steps,
+    restore_state,
     save_on_main,
     scene_datasets,
     write_eval_json,
@@ -79,7 +80,6 @@ from nerf_mae_torch.data import (
 )
 from nerf_mae_torch.flops import train_mfu
 from nerf_mae_torch.parallel import is_main
-from nerf_mae_torch.train.checkpoint import restore_checkpoint
 from nerf_mae_torch.train.trainer import MAETrainer
 
 log = logging.getLogger("nerf_mae_torch.run_mae_pretrain")
@@ -109,7 +109,9 @@ def parse_args(argv=None):
     p.add_argument("--rotate_prob", default=0.0, type=float)
     p.add_argument("--percent_train", default=1.0, type=float)
     p.add_argument("--checkpoint_dir", default="checkpoints/mae")
-    p.add_argument("--checkpoint", default=None, help="resume/eval checkpoint dir")
+    p.add_argument("--checkpoint", default=None,
+                   help="resume or evaluate: a checkpoint dir of this driver, or a JAX "
+                        "state .npz (tools.orbax_to_npz --state)")
     p.add_argument("--log_interval", default=10, type=int)
     p.add_argument("--eval_interval", default=200, type=int,
                    help="steps between eval passes")
@@ -194,12 +196,7 @@ def _main(args, mesh):
     trainer = MAETrainer(mae_cfg, train_cfg, total_steps, device, mesh)
     state = trainer.init(args.seed)
     if args.checkpoint:
-        restored = restore_checkpoint(args.checkpoint)
-        state.model.load_state_dict(restored["params"])
-        if args.mode == "train" and "opt_state" in restored:
-            state.optimizer.load_state_dict(restored["opt_state"])
-            state.step = int(restored["step"])
-        log.info("restored step %d from %s", restored["step"], args.checkpoint)
+        state = restore_state(args, trainer, state)
 
     pm = mae_cfg.swin.patch_size[0] if args.patch_major_input else 0
 
@@ -254,7 +251,7 @@ def train(args, trainer, state, batches, run_eval, val_ds, total_steps, keep, de
                      "%.2f grids/s", step, total_steps, m["loss"], m["loss_rgb"],
                      m["loss_alpha"], m["grad_norm"], rate)
             mlog.log(step, {**m, "grids_per_sec": rate})
-            history.append({"step": step, **m})
+            history.append({"step": step, **m, "grids_per_sec": rate})
             t0 = time.time()
         if step % args.eval_interval == 0 and len(val_ds):
             agg = run_eval(state)

@@ -7,8 +7,11 @@ and writes the (W, L, H, 4) rgbsigma grid npz every downstream task reads.
   python -m nerf_mae_torch.run_nerf --task train_extract --scene_dir scene \\
       --ngp_frame --max_res 160 --extract_dir features --scene_id scene0000
 
-Runs on the CUDA card unless --device cpu. --params_out saves (train) and
-loads (extract) the trained parameters as a torch state dict.
+Runs on the CUDA card unless --device cpu. --params_out saves (train) the
+trained parameters as a torch state dict; extract loads such a file or the
+pickle that scripts/run_nerf.py's --params_out writes (its numpy parameter
+tree, read by a restricted unpickler that admits only dicts, lists, tuples,
+numpy arrays and dtypes, and mapped by convert.nerf_params_from_jax).
 """
 
 from __future__ import annotations
@@ -17,17 +20,51 @@ import argparse
 import json
 import logging
 import os
+import pickle
+import zipfile
+from typing import Dict
 
 import numpy as np
 import torch
 
 from nerf_mae_torch.common import setup_logging
+from nerf_mae_torch.convert import nerf_params_from_jax
 from nerf_mae_torch.inference import resolve_device
 from nerf_mae_torch.nerf.extract import extract_rgbsigma_grid
 from nerf_mae_torch.nerf.images import read_png, resize
 from nerf_mae_torch.nerf.train import NeRFTrainer
 
 log = logging.getLogger("run_nerf")
+
+
+class TreeUnpickler(pickle.Unpickler):
+    """Unpickles a numpy parameter tree and nothing else: dicts, lists and
+    tuples (pickle's own opcodes), numpy arrays and dtypes (the globals
+    below; `_frombuffer` is how protocol 5 rebuilds a contiguous array). Any other class is refused with its name before it is
+    imported, so no jax or flax module loads."""
+
+    ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
+               ("numpy.core.multiarray", "_reconstruct"),
+               ("numpy._core.multiarray", "_reconstruct"),
+               ("numpy.core.numeric", "_frombuffer"),
+               ("numpy._core.numeric", "_frombuffer")}
+
+    def find_class(self, module, name):
+        if (module, name) not in self.ALLOWED:
+            raise pickle.UnpicklingError(
+                f"{module}.{name} is not part of a numpy parameter tree; refused")
+        return super().find_class(module, name)
+
+
+def load_params(path: str, params) -> Dict[str, torch.Tensor]:
+    """The state dict of --params_out for the NeRFParams `params`: a torch
+    state dict (what --task train writes), or the JAX driver's pickle
+    (TreeUnpickler, then convert.nerf_params_from_jax)."""
+    if zipfile.is_zipfile(path):  # torch.save's format
+        return torch.load(path, map_location="cpu", weights_only=True)
+    with open(path, "rb") as f:
+        tree = TreeUnpickler(f).load()
+    return nerf_params_from_jax(tree, params)
 
 
 def parse_args(argv=None):
@@ -40,7 +77,8 @@ def parse_args(argv=None):
     p.add_argument("--scene_id", default="scene")
     p.add_argument("--extract_dir", default="features")
     p.add_argument("--params_out", default=None,
-                   help="file to save (train) or load (extract) the NeRF's parameters")
+                   help="file to save (train) or load (extract) the NeRF's parameters: a "
+                        "torch state dict, or scripts/run_nerf.py's pickle (extract)")
     p.add_argument("--steps", default=20000, type=int)
     p.add_argument("--lr", default=5e-4, type=float)
     p.add_argument("--ray_batch", default=4096, type=int)
@@ -204,8 +242,7 @@ def main(argv=None):
             log.info("saved params to %s", args.params_out)
     else:
         params, _ = trainer.init(args.seed, n_views=len(images))
-        params.load_state_dict(torch.load(args.params_out, map_location=device,
-                                          weights_only=True))
+        params.load_state_dict(load_params(args.params_out, params))
     result["params"] = params
 
     if args.task in ("extract", "train_extract"):

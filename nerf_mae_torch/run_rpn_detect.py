@@ -7,9 +7,9 @@ unless --device cpu.
         --rpn_checkpoint checkpoints/rpn --checkpoint_dir checkpoints/rcnn
 
 A frozen first stage, the RPN of --rpn_checkpoint (a run_rpn checkpoint
-dir; random weights from --seed without one), gives the body's features and
---proposals_per_scene proposals a scene (per level before its NMS, and
-overall after). Its head is built with the number of 3^3 convs the
+dir or the .npz of a JAX one; random weights from --seed without one),
+gives the body's features and --proposals_per_scene proposals a scene (per
+level before its NMS, and overall after). Its head is built with the number of 3^3 convs the
 checkpoint holds, and every other parameter must match. The body runs once
 a step, under no_grad, for both the proposals and the RoI features. The
 RCNN stage (RoI sampling, aligned pooling, classification and refinement)
@@ -17,7 +17,9 @@ trains on them with AdamW + OneCycle + the clip, fed through
 common.overlap_batches (--workers, --prefetch, --transfer_dtype; no
 --device_data, as in JAX); eval reports recall, AR
 and AP25/50/75 of its refined boxes at 300 (eval/detection.py), from
---checkpoint when given. --roi_path is parsed and unused, as in
+--checkpoint when given (a checkpoint dir of this driver, or a JAX RCNN
+state .npz from tools.orbax_to_npz --state, which in train mode resumes
+JAX's AdamW state). --roi_path is parsed and unused, as in
 scripts/run_rpn_detect.py. Under torchrun it trains data-parallel over the
 ranks, --batch_size global (common.build_mesh): each rank runs the frozen
 RPN on its scenes and the RCNN's sampling counts are the global batch's.
@@ -41,6 +43,8 @@ from nerf_mae_torch.common import (
     metric_logger,
     overlap_batches,
     profiled_steps,
+    refuse_orbax,
+    restore_state,
     save_on_main,
     scene_datasets,
     setup_logging,
@@ -48,6 +52,7 @@ from nerf_mae_torch.common import (
     write_eval_json,
 )
 from nerf_mae_torch.config import SWIN_PRESETS, TrainConfig
+from nerf_mae_torch.convert import jax_params, read_npz
 from nerf_mae_torch.data import detection_batch_iterator, synthetic_detection_scenes
 from nerf_mae_torch.eval.detection import detection_eval_summary
 from nerf_mae_torch.models.rcnn import RCNNConfig
@@ -66,7 +71,8 @@ def parse_args(argv=None):
                    help="unused, as in scripts/run_rpn_detect.py (proposals come from "
                         "--rpn_checkpoint)")
     p.add_argument("--rpn_checkpoint", default=None,
-                   help="trained RPN checkpoint (run_rpn) to generate proposals")
+                   help="trained RPN checkpoint (run_rpn) to generate proposals, or the "
+                        ".npz of a JAX one (tools.orbax_to_npz)")
     p.add_argument("--rotated_bbox", action="store_true")
     p.add_argument("--rois_per_scene", default=128, type=int)
     p.add_argument("--proposals_per_scene", default=256, type=int)
@@ -91,12 +97,21 @@ def rcnn_config(args) -> RCNNConfig:
 
 def frozen_rpn(args, device, mesh=None):
     """The first stage's TrainState, in eval mode: the RPN of
-    --rpn_checkpoint with as many head convs as the checkpoint holds
-    (load_state_dict is strict, so any other mismatch raises), or random
+    --rpn_checkpoint (a run_rpn checkpoint dir, or the .npz of a JAX
+    run_rpn checkpoint from tools.orbax_to_npz, with or without --state)
+    with as many head convs as the checkpoint holds (load_state_dict is
+    strict, so any other mismatch raises), or random
     weights from --seed at the JAX driver's depth 1 without one; on a mesh,
     replicated from rank 0."""
-    params = restore_checkpoint(args.rpn_checkpoint)["params"] if args.rpn_checkpoint else {}
-    depth = sum(1 for k in params if re.fullmatch(r"head\.conv\d+\.weight", k)) or 1
+    params, jax_tree = {}, None
+    if args.rpn_checkpoint and args.rpn_checkpoint.endswith(".npz"):
+        jax_tree = jax_params(read_npz(args.rpn_checkpoint))
+        depth = sum(1 for k in jax_tree if re.fullmatch(r"head/conv\d+/kernel", k)) or 1
+    else:
+        if args.rpn_checkpoint:
+            refuse_orbax(args.rpn_checkpoint)
+            params = restore_checkpoint(args.rpn_checkpoint)["params"]
+        depth = sum(1 for k in params if re.fullmatch(r"head\.conv\d+\.weight", k)) or 1
     rpn = RPNConfig(resolution=args.resolution, rotated_bbox=args.rotated_bbox,
                     conv_depth=depth, pre_nms_top_n=args.proposals_per_scene,
                     post_nms_top_n=args.proposals_per_scene, max_gt=args.max_gt)
@@ -105,6 +120,8 @@ def frozen_rpn(args, device, mesh=None):
                          backbone=args.backbone_type, compute_dtype=args.compute_dtype,
                          remat=not args.no_remat, mesh=mesh)
     state = trainer.init(args.seed)
+    if jax_tree is not None:
+        params = trainer.params_from_jax(jax_tree)
     if params:
         state.model.load_state_dict(params)
         log.info("restored the RPN (head depth %d) from %s", depth, args.rpn_checkpoint)
@@ -147,12 +164,7 @@ def _main(args, mesh):
                           mesh=mesh)
     state = trainer.init(args.seed)
     if args.checkpoint:
-        restored = restore_checkpoint(args.checkpoint)
-        state.model.load_state_dict(restored["params"])
-        if args.mode == "train" and "opt_state" in restored:
-            state.optimizer.load_state_dict(restored["opt_state"])
-            state.step = int(restored["step"])
-        log.info("restored the RCNN step %d from %s", restored["step"], args.checkpoint)
+        state = restore_state(args, trainer, state)
 
     if args.mode == "eval":
         t0 = time.perf_counter()

@@ -7,6 +7,12 @@ optimizer's state_dict (torch.save; read back with weights_only=True);
 `extra.json` holds the optional metrics. Only the newest `keep` steps stay.
 The trunk is the parameters under the port's trunk names; `graft_mae`
 copies it with the MAE's decoder4/3/2 into a downstream head's `base`.
+
+A run of the JAX package resumes from its state .npz
+(`python -m nerf_mae_torch.tools.orbax_to_npz <ckpt_dir> --state --out
+state.npz`, run where the orbax checkpoints are): `load_jax_state` gives
+what `restore_checkpoint` gives, the optimizer state as a ready AdamW state
+dict, so both end in the same load_state_dict calls.
 """
 
 from __future__ import annotations
@@ -14,9 +20,11 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from nerf_mae_torch.convert import adamw_state_dict, jax_params, read_npz
 
 # the pretrained trunk (loadable into a downstream backbone): the patch
 # embedding and the Swin stages; the mask token, decoders and head are not
@@ -69,6 +77,35 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> Dict:
     if os.path.exists(extra):
         with open(extra) as f:
             out["extra"] = json.load(f)
+    return out
+
+
+def load_jax_state(path: str, model, optimizer, from_jax: Callable) -> Dict:
+    """{"step", "params", "opt_state"[, "extra"]} of a JAX state .npz
+    (orbax_to_npz --state), as restore_checkpoint gives them: the step
+    directory's number, `from_jax` of the parameters (the family's mapping,
+    e.g. a trainer's params_from_jax; CPU tensors), a torch.optim.AdamW
+    state dict of `optimizer` over `model`'s parameters made from the
+    moments and the update count (convert.adamw_state_dict; it keeps the
+    optimizer's own flags, and load_state_dict moves the moments to each
+    parameter's device), and the step's metrics. Raises on a params-only
+    .npz and on an update count that differs from the schedule's."""
+    flat = read_npz(path)
+    missing = [k for k in ("step", "opt_state/count", "schedule_count") if k not in flat]
+    if missing:
+        raise ValueError(
+            f"{path} holds no training state ({', '.join(missing)} missing): write it with "
+            "`python -m nerf_mae_torch.tools.orbax_to_npz <ckpt_dir> --state --out state.npz`")
+    count, schedule = int(flat["opt_state/count"]), int(flat["schedule_count"])
+    if count != schedule:
+        raise ValueError(f"{path}: AdamW count {count} and schedule count {schedule} differ")
+    part = lambda prefix: {k[len(prefix):]: v for k, v in flat.items()  # noqa: E731
+                           if k.startswith(prefix)}
+    out = {"step": int(flat["step"]), "params": from_jax(jax_params(flat)),
+           "opt_state": adamw_state_dict(part("opt_state/mu/"), part("opt_state/nu/"), count,
+                                         model, optimizer, from_jax)}
+    if "extra" in flat:
+        out["extra"] = json.loads(flat["extra"].tobytes().decode())
     return out
 
 

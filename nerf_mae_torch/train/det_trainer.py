@@ -25,6 +25,7 @@ from typing import Dict, Optional
 import torch
 
 from nerf_mae_torch.config import SwinConfig, TrainConfig
+from nerf_mae_torch.convert import det_params_from_jax
 from nerf_mae_torch.models.detector import FCOSDetector
 from nerf_mae_torch.models.fcos import FCOSConfig
 from nerf_mae_torch.parallel.mesh import DataMesh
@@ -59,6 +60,9 @@ class DetectionTrainer(Trainer):
         return state
 
     graft_mae_trunk = graft_mae  # the JAX trainer's name
+
+    def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
+        return det_params_from_jax(tree, self.swin, self.fcos, self.backbone)
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One optimizer step; returns (state, metrics): 0-d device tensors

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from nerf_mae_torch.config import MAEConfig, TrainConfig
+from nerf_mae_torch.convert import head_params_from_jax
 from nerf_mae_torch.models.heads import (
     VoxelSemantics3D,
     VoxelSR3D,
@@ -40,6 +41,11 @@ from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
 
 
 class _DenseHeadTrainer(Trainer):
+    kind = ""  # head_params_from_jax's
+
+    def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
+        return head_params_from_jax(tree, self.mae_cfg, self.kind)
+
     def graft_mae(self, state: TrainState,
                   mae_params: Dict[str, torch.Tensor]) -> TrainState:
         """Copy a pretrained MAE's trunk and decoder4/3/2 (a port MAE state
@@ -77,6 +83,8 @@ class _DenseHeadTrainer(Trainer):
 
 
 class VoxelSRTrainer(_DenseHeadTrainer):
+    kind = "sr"
+
     def __init__(self, mae_cfg: MAEConfig, train_cfg: TrainConfig, total_steps: int,
                  device="cuda", out_resolution: int = 256, mesh: Optional[DataMesh] = None):
         super().__init__(mae_cfg, train_cfg, total_steps, device, mesh)
@@ -91,6 +99,8 @@ class VoxelSRTrainer(_DenseHeadTrainer):
 
 class VoxelSemanticsTrainer(_DenseHeadTrainer):
     """eval_step also returns `pred_labels` [B, R, R, R] (argmax)."""
+
+    kind = "semantics"
 
     def __init__(self, mae_cfg: MAEConfig, train_cfg: TrainConfig, total_steps: int,
                  device="cuda", num_classes: int = 19,

@@ -77,6 +77,19 @@ def clip_by_global_norm(grads: List[torch.Tensor],
     return norm
 
 
+def update_count(optimizer: torch.optim.Optimizer) -> int:
+    """The updates `optimizer` has taken: AdamW's step of its first
+    parameter (every parameter steps together), 0 before the first. The
+    schedule is read at it, as optax reads its ScaleByScheduleState count.
+    The step lives on the host, so reading it does not synchronize."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            step = optimizer.state.get(p, {}).get("step")
+            if step is not None:
+                return int(step)
+    return 0
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    cfg: TrainConfig) -> torch.optim.AdamW:
     """AdamW with optax.adamw's constants (b1 0.9, b2 0.999, eps 1e-8)."""

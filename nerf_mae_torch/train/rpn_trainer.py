@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 import torch
 
 from nerf_mae_torch.config import SwinConfig, TrainConfig
+from nerf_mae_torch.convert import rcnn_params_from_jax, rpn_params_from_jax
 from nerf_mae_torch.models.rcnn import RCNNConfig, RCNNStage
 from nerf_mae_torch.models.rpn import NeRFRPN, RPNConfig
 from nerf_mae_torch.parallel.mesh import DataMesh
@@ -59,6 +60,9 @@ class RPNTrainer(Trainer):
     # detector's (the body is the same module under the same name)
     graft_mae = DetectionTrainer.graft_mae
     graft_mae_trunk = graft_mae  # the JAX trainer's name
+
+    def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
+        return rpn_params_from_jax(tree, self.swin, self.rpn, self.backbone)
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    sample_draws: Optional[torch.Tensor] = None):
@@ -100,6 +104,9 @@ class RCNNTrainer(Trainer):
 
     def _init_model(self, seed: int) -> RCNNStage:
         return self._build_model().init_weights(seed)
+
+    def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
+        return rcnn_params_from_jax(tree, self.rcnn, self.in_channels)
 
     def train_step(self, state: TrainState, feats: List[torch.Tensor],
                    proposals: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from nerf_mae_torch.config import MAEConfig, TrainConfig
+from nerf_mae_torch.convert import params_from_jax
 from nerf_mae_torch.metrics import masked_mse, masked_psnr, one_rank
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
 from nerf_mae_torch.ops.draws import batch_generator
@@ -68,6 +69,7 @@ from nerf_mae_torch.train.optim import (
     clip_with_nonfinite_guard,
     make_optimizer,
     make_schedule,
+    update_count,
 )
 
 logger = logging.getLogger(__name__)
@@ -124,6 +126,12 @@ class Trainer:
     def _build_model(self) -> torch.nn.Module:
         raise NotImplementedError
 
+    def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
+        """The JAX trainer's parameter tree (nested or "/"-flat, as numpy)
+        -> this trainer's state dict, through the family's mapping in
+        convert.py (a relayout per leaf, so it maps AdamW's moments too)."""
+        raise NotImplementedError
+
     def _init_model(self, seed: int) -> torch.nn.Module:
         return set_spatial(init_weights(self._build_model(), seed), self.mesh)
 
@@ -157,21 +165,29 @@ class Trainer:
                                                            self.mesh)))}
 
     def _update(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-        """Backward of `loss`, on a mesh the sum of the gradients over the
-        ranks, the clip (a parameter without a gradient gets zeros) and an
-        AdamW step at the scheduled lr; advances the step. Every rank clips
-        the global gradient, so all make the same non-finite skip decision.
-        Returns the gradient norm before clipping."""
-        model, opt = state.model, state.optimizer
-        opt.zero_grad(set_to_none=True)
+        """Backward of `loss`, then apply_gradients. Returns the gradient
+        norm before clipping."""
+        state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        return self.apply_gradients(state)
+
+    def apply_gradients(self, state: TrainState) -> torch.Tensor:
+        """The update from the parameters' gradients: on a mesh their sum
+        over the ranks, the clip (a parameter without a gradient gets
+        zeros) and an AdamW step at the lr of the schedule at the
+        optimizer's update count (optax reads its schedule's count; a run
+        resumed from a JAX state continues from JAX's); advances the step.
+        Every rank clips the global gradient, so all make the same
+        non-finite skip decision. Returns the gradient norm before
+        clipping."""
+        model, opt = state.model, state.optimizer
         params = list(model.parameters())
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         all_reduce_grads(params, self.mesh)
         grad_norm = self.clip([p.grad for p in params], self.train_cfg.clip_grad_norm)
-        lr = self.schedule(state.step)
+        lr = self.schedule(update_count(opt))
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
@@ -182,6 +198,9 @@ class Trainer:
 class MAETrainer(Trainer):
     def _build_model(self) -> SwinMAE3D:
         return SwinMAE3D(self.mae_cfg, device=self.device)
+
+    def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
+        return params_from_jax(tree, self.mae_cfg)
 
     def _losses(self, model, batch, deterministic, generator, droppath,
                 token_mask=None):
