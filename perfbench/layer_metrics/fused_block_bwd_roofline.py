@@ -1,0 +1,8 @@
+"""fused_block_bwd_roofline: the bwd fused Swin-block calls' share of their
+roofline over the profiled steps (perfbench/readers.py)."""
+
+from perfbench.readers import fused_block_roofline
+
+
+def read(ctx):
+    return fused_block_roofline(ctx, "bwd")
