@@ -179,7 +179,7 @@ def _measure(cfg: MAEConfig, mesh: DataMesh, batch_size: int, reps: int,
     if report:
         _state["phase"] = f"timed_batch{batch_size}"
     print(f"# timing batch={batch_size} reps={reps}", file=sys.stderr, flush=True)
-    with maybe_profile(profile_dir if is_main(mesh) else None, device, "bench"):
+    with maybe_profile(profile_dir if is_main(mesh) else None, device, "bench", mesh):
         _sync(device)
         t0 = time.perf_counter()
         for i in range(reps):

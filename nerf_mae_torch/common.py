@@ -42,6 +42,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, TrainConfig
 from nerf_mae_torch.convert import jax_params, params_from_jax, read_npz, state_dict_of
 from nerf_mae_torch.data import SceneDataset, load_split, prefetch
@@ -198,7 +199,9 @@ def add_feed_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "serve batches as device gathers (excludes host augments)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler chrome trace of the benchmark steps "
-                        "(or the first --log_interval train steps) here")
+                        "(or the first --log_interval train steps) here, and beside it "
+                        "(also logged) the port's spans a step: calls, host, self host, "
+                        "device interval, device busy and idle ms, and its counters")
     p.add_argument("--log_dir", default=None, help="jsonl metric log dir")
     p.add_argument("--wandb", action="store_true",
                    help="also log to wandb (when the package can be imported)")
@@ -267,7 +270,9 @@ class HostToDevice:
     previous upload's event has completed. `ready` makes the consuming
     stream wait on the event and marks the tensors as used by it, so the
     allocator does not hand their memory to a later upload under a running
-    step. On the CPU the batch is wrapped (cast where asked), event None."""
+    step. On the CPU the batch is wrapped (cast where asked), event None.
+    On a card: span nerf_mae.feed.h2d (on the copy stream), counter
+    feed.h2d_bytes (tracing.py)."""
 
     def __init__(self, device: torch.device, transfer_dtype: Optional[str] = None,
                  slots: int = 1):
@@ -291,7 +296,7 @@ class HostToDevice:
         if event is not None:
             event.synchronize()  # the slot's previous upload has completed
         out = {}
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), tracing.span("nerf_mae.feed.h2d"):
             for k, v in host.items():
                 dtype = transfer_leaf(v, self.transfer_dtype)
                 buf = bufs.get(k)
@@ -301,6 +306,9 @@ class HostToDevice:
                 out[k] = buf.to(self.device, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
+        if tracing.on():
+            tracing.count("feed.h2d_bytes", sum(t.numel() * t.element_size()
+                                                for t in out.values()))
         self._slots[i] = (bufs, event)
         return out, event
 
@@ -333,6 +341,7 @@ def overlap_batches(batches: Iterable[Dict[str, np.ndarray]], device: torch.devi
     source = prefetch(batches, depth=depth, map_fn=put) if depth > 0 else map(put, batches)
     try:
         for copied in source:
+            tracing.count("feed.batches")
             yield put.ready(copied)
     finally:
         if depth > 0:
@@ -378,10 +387,15 @@ def make_train_batches(args, device: torch.device,
 
 
 @contextlib.contextmanager
-def maybe_profile(profile_dir: Optional[str], device: torch.device, name: str = "steps"):
+def maybe_profile(profile_dir: Optional[str], device: torch.device, name: str = "steps",
+                  mesh: Optional[DataMesh] = None):
     """torch.profiler (CPU, and CUDA on a card) around the wrapped steps
     when profile_dir is set; writes <profile_dir>/<name>_<pid>_<time>.json,
-    a chrome trace (scripts/common.py maybe_profile)."""
+    a chrome trace (scripts/common.py maybe_profile). The port's spans are
+    on while it records (tracing.py): their table (a row per span: calls,
+    host, self host, device interval, device busy and idle ms a step) and
+    the counters over the wrapped steps are logged and written beside the
+    trace as <name>_<pid>_<time>.spans.json."""
     if not profile_dir:
         yield
         return
@@ -389,6 +403,8 @@ def maybe_profile(profile_dir: Optional[str], device: torch.device, name: str = 
 
     device = torch.device(device)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    tracing.reset()
+    before = tracing.counters(mesh)
     with profile(activities=acts) as prof:
         yield
         _sync(device)
@@ -396,6 +412,10 @@ def maybe_profile(profile_dir: Optional[str], device: torch.device, name: str = 
     path = os.path.join(profile_dir, f"{name}_{os.getpid()}_{int(time.time() * 1e3)}.json")
     prof.export_chrome_trace(path)
     log.info("trace written to %s", path)
+    spans = tracing.table(prof, mesh, before)
+    log.info("%s", tracing.format_table(spans))
+    with open(path[:-len(".json")] + ".spans.json", "w") as f:
+        json.dump(spans, f, indent=1)
 
 
 def profile_dir(args, mesh: Optional[DataMesh] = None) -> Optional[str]:
@@ -408,7 +428,7 @@ def profiled_steps(args, device: torch.device, steps: Iterable[int],
     """The train loop's steps, the first --log_interval of them under
     maybe_profile(--profile_dir) on rank 0."""
     steps = list(steps)
-    with maybe_profile(profile_dir(args, mesh), device, "train"):
+    with maybe_profile(profile_dir(args, mesh), device, "train", mesh):
         yield from steps[:args.log_interval]
     yield from steps[args.log_interval:]
 
@@ -508,7 +528,7 @@ def benchmark_steps(args, device: torch.device, step: Callable[[], Dict], metric
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
-    with maybe_profile(profile_dir(args, mesh), device, metric):
+    with maybe_profile(profile_dir(args, mesh), device, metric, mesh):
         for _ in range(reps):
             t = time.perf_counter()
             m = step()

@@ -25,6 +25,10 @@ Data parallelism (the reference's DistributedSampler): given `rank` and
 batch of `batch_size` (b = batch_size / world) and loads only those scenes.
 Every rank draws the augment parameters of the whole batch, in its order,
 and applies its own, so its rows equal those of the single-process batch.
+
+Host spans (tracing.py), on whichever thread does the work:
+nerf_mae.feed.read (a scene from disk), nerf_mae.feed.augment and
+nerf_mae.feed.collate (a scene's pad, and the batch's assembly).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.data import native
 from nerf_mae_torch.data.pipeline import ScenePool
 from nerf_mae_torch.parallel.mesh import batch_rows
@@ -179,7 +184,8 @@ class SceneDataset:
         scene = self.scenes[index]
         item = self._cache.get(scene)
         if item is None:
-            item = self._load(scene)
+            with tracing.span("nerf_mae.feed.read", events=False):
+                item = self._load(scene)
         return dict(item)
 
     def draw_augment(self, index: int) -> Tuple:
@@ -192,12 +198,13 @@ class SceneDataset:
 
     @staticmethod
     def apply_augment(item: Dict, draws: Tuple) -> Dict:
-        return apply_augment(item, draws)
+        with tracing.span("nerf_mae.feed.augment", events=False):
+            return apply_augment(item, draws)
 
     def __getitem__(self, index: int) -> Dict:
         item = self.load_item(index)
         if self.augmented:
-            item = apply_augment(item, self.draw_augment(index))
+            item = self.apply_augment(item, self.draw_augment(index))
         return item
 
 
@@ -431,11 +438,15 @@ def _fetch(dataset, sel, pool, finish, own: slice = slice(None)):
     of every scene of `sel` are drawn here in its order, the `own` scenes
     loaded on the pool and their draws applied there, so the draws depend
     neither on the number of workers nor on the rank."""
+    def collate(item):
+        with tracing.span("nerf_mae.feed.collate", events=False):
+            return finish(item)
+
     if not getattr(dataset, "augmented", False):
-        return pool.map(lambda j: finish(dataset[int(j)]), sel[own])
+        return pool.map(lambda j: collate(dataset[int(j)]), sel[own])
     draws = [dataset.draw_augment(int(j)) for j in sel][own]
     items = pool.map(lambda j: dataset.load_item(int(j)), sel[own])
-    return pool.map(lambda a: finish(dataset.apply_augment(*a)), list(zip(items, draws)))
+    return pool.map(lambda a: collate(dataset.apply_augment(*a)), list(zip(items, draws)))
 
 
 def detection_batch_iterator(dataset: Sequence, batch_size: int, resolution: int,
@@ -462,14 +473,15 @@ def detection_batch_iterator(dataset: Sequence, batch_size: int, resolution: int
                 box_dim = max((item["boxes"].shape[1] for item, _ in pairs
                                if item.get("boxes") is not None), default=6)
                 b = len(pairs)
-                grids = np.zeros((b, resolution, resolution, resolution, 4), np.float32)
-                sizes = np.zeros((b, 3), np.int32)
-                gt = np.zeros((b, max_gt, box_dim), np.float32)
-                gv = np.zeros((b, max_gt), bool)
-                for i, (item, padded) in enumerate(pairs):
-                    grids[i], sizes[i] = padded
-                    if item.get("boxes") is not None:
-                        gt[i], gv[i] = pad_boxes(item["boxes"], max_gt)
+                with tracing.span("nerf_mae.feed.collate", events=False):
+                    grids = np.zeros((b, resolution, resolution, resolution, 4), np.float32)
+                    sizes = np.zeros((b, 3), np.int32)
+                    gt = np.zeros((b, max_gt, box_dim), np.float32)
+                    gv = np.zeros((b, max_gt), bool)
+                    for i, (item, padded) in enumerate(pairs):
+                        grids[i], sizes[i] = padded
+                        if item.get("boxes") is not None:
+                            gt[i], gv[i] = pad_boxes(item["boxes"], max_gt)
                 yield {"grids": grids, "sizes": sizes, "gt_boxes": gt, "gt_valid": gv}
             if not loop:
                 return
@@ -527,10 +539,11 @@ def mae_batch_iterator(
                     continue
                 own = batch_rows(len(sel), rank, world)
                 scenes = _fetch(dataset, sel, pool, finish, own)
-                grids = np.zeros((len(scenes),) + grid_shape, np.float32)
-                sizes = np.zeros((len(scenes), 3), np.int32)
-                for i, (g, size) in enumerate(scenes):
-                    grids[i], sizes[i] = g, size
+                with tracing.span("nerf_mae.feed.collate", events=False):
+                    grids = np.zeros((len(scenes),) + grid_shape, np.float32)
+                    sizes = np.zeros((len(scenes), 3), np.int32)
+                    for i, (g, size) in enumerate(scenes):
+                        grids[i], sizes[i] = g, size
                 yield {"grids": grids, "sizes": sizes}
             if not loop:
                 return

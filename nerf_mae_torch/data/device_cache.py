@@ -32,6 +32,7 @@ from typing import Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.parallel.mesh import batch_rows
 from nerf_mae_torch.parallel.spatial import even_bounds
 
@@ -89,6 +90,8 @@ def device_corpus_batches(
     (rank and world: the data axis). space > 1 keeps the space_rank-th slab
     of axis 1 of every grid leaf (ndim >= 4) on the device. The yielded
     dicts have the host iterator's keys and go straight to train_step.
+    Span nerf_mae.feed.gather; counters feed.batches and feed.h2d_bytes
+    (the index vector; tracing.py).
     """
     device = torch.device(device)
     n = len(next(iter(corpus.values())))
@@ -121,7 +124,11 @@ def device_corpus_batches(
                 # static shapes: pad the tail by repeating its first index
                 sel = np.concatenate([sel, np.full(batch_size - len(sel), sel[0], sel.dtype)])
             sel = sel[own]
-            idx = torch.from_numpy(np.asarray(sel, np.int64)).to(device, non_blocking=True)
-            yield {k: v.index_select(0, idx) for k, v in dev.items()}
+            with tracing.span("nerf_mae.feed.gather"):
+                idx = torch.from_numpy(np.asarray(sel, np.int64)).to(device, non_blocking=True)
+                batch = {k: v.index_select(0, idx) for k, v in dev.items()}
+            tracing.count("feed.batches")
+            tracing.count("feed.h2d_bytes", idx.numel() * idx.element_size())
+            yield batch
         if not loop:
             return

@@ -17,6 +17,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
+from nerf_mae_torch import tracing
+
 _SENTINEL = object()
 
 
@@ -24,7 +26,8 @@ class PrefetchIterator:
     """Wraps an iterator; a daemon thread keeps `depth` items ready.
 
     An exception raised by the source iterator (or map_fn) is re-raised in
-    the consumer at the next `__next__`. `close()` (also called by
+    the consumer at the next `__next__`. The consumer's wait is the span
+    nerf_mae.feed.wait (tracing.py). `close()` (also called by
     `__exit__` and on exhaustion) stops the thread promptly, also when the
     consumer abandons the iterator mid-epoch.
     """
@@ -69,7 +72,8 @@ class PrefetchIterator:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
-        item = self._q.get()
+        with tracing.span("nerf_mae.feed.wait", events=False):
+            item = self._q.get()
         if item is _SENTINEL:
             self.close()
             if self._err is not None:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import MAEConfig
 from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.swin import (
@@ -164,35 +165,44 @@ class SwinMAE3D(nn.Module):
         then required. A training forward (deterministic=False) draws the
         stochastic-depth keep factors from `droppath_generator`. On a space
         axis grids, pred and token_mask are this rank's slabs; a drawn mask
-        is drawn whole and sliced."""
+        is drawn whole and sliced. Spans (tracing.py): nerf_mae.embed (the
+        embedding and the mask), the encoder's stages, nerf_mae.decoder4/3/2
+        and nerf_mae.head, each output marked for its backward."""
         cfg = self.cfg
-        x = self.embed(grids)
-        if token_mask is None:
-            if generator is None:
-                raise ValueError("pass token_mask or a generator to draw it")
-            token_mask = block_mask_3d(
-                generator, grids.shape[0], cfg.token_grid,
-                block=cfg.mask_block, p_remove=cfg.masking_prob,
-                strategy=cfg.masking_strategy, per_sample=cfg.per_sample_mask,
-            )
-            token_mask = sp.take_slab(token_mask, self.spatial)
-        token_mask = token_mask.to(x.device)
-        # masked tokens (position embedding included) become the mask token
-        # (reference: swin_mae3d.py:1461-1463, 1375-1380)
-        x = torch.where(token_mask[..., None], self.mask_token.to(cfg.dtype), x)
+        with tracing.span("nerf_mae.embed"):
+            x = self.embed(grids)
+            if token_mask is None:
+                if generator is None:
+                    raise ValueError("pass token_mask or a generator to draw it")
+                token_mask = block_mask_3d(
+                    generator, grids.shape[0], cfg.token_grid,
+                    block=cfg.mask_block, p_remove=cfg.masking_prob,
+                    strategy=cfg.masking_strategy, per_sample=cfg.per_sample_mask,
+                )
+                token_mask = sp.take_slab(token_mask, self.spatial)
+            token_mask = token_mask.to(x.device)
+            # masked tokens (position embedding included) become the mask
+            # token (reference: swin_mae3d.py:1461-1463, 1375-1380)
+            x = torch.where(token_mask[..., None], self.mask_token.to(cfg.dtype), x)
+            x = tracing.mark(x, "nerf_mae.embed")
 
         f = self.stages(x, deterministic, droppath_generator)
-        d = self._decode(self.decoder4, f[3], f[2])
-        d = self._decode(self.decoder3, d, f[1])
-        d = self._decode(self.decoder2, d, f[0])
-        if cfg.decoder_type == "subpixel":
-            pred = self._decode(
-                lambda t: self.subpixel_head(t, patched=patched_pred), d)
-        else:
-            pred = self.out(self._decode(self.decoder1, d))
-            if patched_pred:
-                pred = patchify_3d(pred, cfg.swin.patch_size[0])
-        return pred.float(), token_mask
+        d = f[3]
+        for name, decoder, skip in (("nerf_mae.decoder4", self.decoder4, f[2]),
+                                    ("nerf_mae.decoder3", self.decoder3, f[1]),
+                                    ("nerf_mae.decoder2", self.decoder2, f[0])):
+            with tracing.span(name):
+                d = tracing.mark(self._decode(decoder, d, skip), name)
+        with tracing.span("nerf_mae.head"):
+            if cfg.decoder_type == "subpixel":
+                pred = self._decode(
+                    lambda t: self.subpixel_head(t, patched=patched_pred), d)
+            else:
+                pred = self.out(self._decode(self.decoder1, d))
+                if patched_pred:
+                    pred = patchify_3d(pred, cfg.swin.patch_size[0])
+            pred = tracing.mark(pred.float(), "nerf_mae.head")
+        return pred, token_mask
 
     def encode(self, grids: torch.Tensor,
                deterministic: bool = True) -> List[torch.Tensor]:

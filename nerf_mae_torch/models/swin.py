@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (
     set_checkpoint_early_stop,
 )
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import SwinConfig
 from nerf_mae_torch.ops.draws import batch_rand
 from nerf_mae_torch.ops.fused_attention import (
@@ -331,6 +332,8 @@ class SwinEncoder3D(nn.ModuleList):
     [C@T, 2C@T/2, 4C@T/4, 8C@T/8] (reference: swin_mae3d.py:1131-1172).
     `remat_stages` (one bool per stage) turns on the blocks' checkpointing.
     On a space axis, input and features are even slabs (module doc).
+    Spans (tracing.py): nerf_mae.stage{s} around stage s, nerf_mae.merge{s}
+    around its merge, each output marked for its backward.
     """
 
     spatial = None  # the mesh on a space axis
@@ -371,21 +374,24 @@ class SwinEncoder3D(nn.ModuleList):
         mesh = self.spatial
         features = []
         layout = None if mesh is None else sp.even_bounds(sp.grid_len(x), mesh.space)
-        for stage in self:
-            for layer in stage:
-                if isinstance(layer, PatchMerging3D):
-                    x = layer(x)
-                    if mesh is not None:
-                        layout = sp.halve_bounds(layout)
+        for s, stage in enumerate(self):
+            with tracing.span(f"nerf_mae.stage{s}"):
+                for layer in stage:
+                    if isinstance(layer, PatchMerging3D):
+                        with tracing.span(f"nerf_mae.merge{s}"):
+                            x = tracing.mark(layer(x), f"nerf_mae.merge{s}")
+                        if mesh is not None:
+                            layout = sp.halve_bounds(layout)
+                    else:
+                        if mesh is not None:  # this stage's slabs of whole windows
+                            windows = sp.window_bounds(sp.grid_len(x), layer.window[0],
+                                                       mesh.space)[0]
+                            x, layout = sp.relayout(x, layout, windows, mesh), windows
+                        x = layer(x, deterministic, generator)
+                x = tracing.mark(x, f"nerf_mae.stage{s}")
+                if mesh is not None:
+                    even = sp.even_bounds(sp.grid_len(x), mesh.space)
+                    features.append(sp.relayout(x, layout, even, mesh))
                 else:
-                    if mesh is not None:  # this stage's slabs of whole windows
-                        windows = sp.window_bounds(sp.grid_len(x), layer.window[0],
-                                                   mesh.space)[0]
-                        x, layout = sp.relayout(x, layout, windows, mesh), windows
-                    x = layer(x, deterministic, generator)
-            if mesh is not None:
-                even = sp.even_bounds(sp.grid_len(x), mesh.space)
-                features.append(sp.relayout(x, layout, even, mesh))
-            else:
-                features.append(x)
+                    features.append(x)
         return features

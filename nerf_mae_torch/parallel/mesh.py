@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.parallel.spatial import grid_slab, is_spatial
 
 log = logging.getLogger(__name__)
@@ -324,13 +325,18 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter], mesh: Optional[DataMe
     """Sum every parameter's .grad over the ranks, in the parameters' order,
     in flat buffers of at most BUCKET_BYTES. The sum's order is the
     collective's, the same on every step, so the result is deterministic.
-    Every parameter must have a gradient. Returns the bytes reduced."""
+    Every parameter must have a gradient. Returns the bytes reduced. Span
+    nerf_mae.allreduce; counters allreduce.calls and allreduce.bytes
+    (tracing.py)."""
     grads = [p.grad for p in params]
     if not distributed(mesh):
         return 0
-    _reduce_flat(grads, mesh, "sum", BUCKET_BYTES)
+    with tracing.span("nerf_mae.allreduce"):
+        _reduce_flat(grads, mesh, "sum", BUCKET_BYTES)
     nbytes = sum(g.numel() * g.element_size() for g in grads)
     mesh.grad_bytes += nbytes
+    tracing.count("allreduce.calls")
+    tracing.count("allreduce.bytes", nbytes)
     return nbytes
 
 

@@ -285,7 +285,8 @@ def benchmark(args, trainer, state, batch, mae_cfg, device):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = []
-    with maybe_profile(profile_dir(args, trainer.mesh), device, "mae_train_step"):
+    with maybe_profile(profile_dir(args, trainer.mesh), device, "mae_train_step",
+                       trainer.mesh):
         for _ in range(20):
             t = time.perf_counter()
             state, m = trainer.train_step(state, batch)

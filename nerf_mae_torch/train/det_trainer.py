@@ -24,13 +24,14 @@ from typing import Dict, Optional
 
 import torch
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import SwinConfig, TrainConfig
 from nerf_mae_torch.convert import det_params_from_jax
 from nerf_mae_torch.models.detector import FCOSDetector
 from nerf_mae_torch.models.fcos import FCOSConfig
 from nerf_mae_torch.parallel.mesh import DataMesh
 from nerf_mae_torch.train.checkpoint import extract_trunk, load_trunk_into
-from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
+from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState, traced_step
 
 
 class DetectionTrainer(Trainer):
@@ -64,18 +65,20 @@ class DetectionTrainer(Trainer):
     def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
         return det_params_from_jax(tree, self.swin, self.fcos, self.backbone)
 
+    @traced_step
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One optimizer step; returns (state, metrics): 0-d device tensors
         loss_cls, loss_reg, loss_centerness, num_pos, loss and grad_norm
         (before clipping)."""
         model = state.model
-        model.train()
-        b = batch["grids"].shape[0]
-        loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"], batch["gt_valid"],
-                          deterministic=False, training=True,
-                          droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
-                                                             b),
-                          count_sum=self.count_sum)
+        with tracing.span("nerf_mae.forward"):
+            model.train()
+            b = batch["grids"].shape[0]
+            loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"],
+                              batch["gt_valid"], deterministic=False, training=True,
+                              droppath_generator=self._generator(state.seed, state.step,
+                                                                 _DROPPATH, b),
+                              count_sum=self.count_sum)
         grad_norm = self._update(state, loss)
         metrics = {k: v.detach() for k, v in aux.items()}
         return state, self._global({**metrics, "loss": loss.detach(), "grad_norm": grad_norm})

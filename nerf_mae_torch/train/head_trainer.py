@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import MAEConfig, TrainConfig
 from nerf_mae_torch.convert import head_params_from_jax
 from nerf_mae_torch.models.heads import (
@@ -37,7 +38,7 @@ from nerf_mae_torch.models.heads import (
 )
 from nerf_mae_torch.parallel.mesh import DataMesh
 from nerf_mae_torch.train.checkpoint import graft_mae
-from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
+from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState, traced_step
 
 
 class _DenseHeadTrainer(Trainer):
@@ -58,15 +59,17 @@ class _DenseHeadTrainer(Trainer):
     def _loss(self, out: torch.Tensor, batch: Dict[str, torch.Tensor]):
         raise NotImplementedError
 
+    @traced_step
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One optimizer step; returns (state, metrics): 0-d device tensors,
         the loss, the aux metrics and grad_norm (before clipping)."""
         model = state.model
-        model.train()
-        out = model(batch["grids"], False,
-                    droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
-                                                       batch["grids"].shape[0]))
-        loss, aux = self._loss(out, batch)
+        with tracing.span("nerf_mae.forward"):
+            model.train()
+            out = model(batch["grids"], False,
+                        droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
+                                                           batch["grids"].shape[0]))
+            loss, aux = self._loss(out, batch)
         grad_norm = self._update(state, loss)
         return state, self._global({"loss": loss.detach(), **aux, "grad_norm": grad_norm})
 

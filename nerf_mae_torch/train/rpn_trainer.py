@@ -28,13 +28,14 @@ from typing import Dict, List, Optional
 
 import torch
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import SwinConfig, TrainConfig
 from nerf_mae_torch.convert import rcnn_params_from_jax, rpn_params_from_jax
 from nerf_mae_torch.models.rcnn import RCNNConfig, RCNNStage
 from nerf_mae_torch.models.rpn import NeRFRPN, RPNConfig
 from nerf_mae_torch.parallel.mesh import DataMesh
 from nerf_mae_torch.train.det_trainer import DetectionTrainer
-from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState
+from nerf_mae_torch.train.trainer import _DROPPATH, Trainer, TrainState, traced_step
 
 _SAMPLE = 2  # the generator stream of a step's sampler draws
 
@@ -64,6 +65,7 @@ class RPNTrainer(Trainer):
     def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
         return rpn_params_from_jax(tree, self.swin, self.rpn, self.backbone)
 
+    @traced_step
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    sample_draws: Optional[torch.Tensor] = None):
         """One optimizer step; returns (state, metrics): 0-d device tensors
@@ -71,14 +73,16 @@ class RPNTrainer(Trainer):
         (before clipping). `sample_draws` [B, A] replaces the sampler's
         drawn uniforms (tests)."""
         model = state.model
-        model.train()
-        b = batch["grids"].shape[0]
-        loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"], batch["gt_valid"],
-                          deterministic=False, training=True,
-                          droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
-                                                             b),
-                          sample_generator=self._generator(state.seed, state.step, _SAMPLE, b),
-                          sample_draws=sample_draws, count_sum=self.count_sum)
+        with tracing.span("nerf_mae.forward"):
+            model.train()
+            b = batch["grids"].shape[0]
+            loss, aux = model(batch["grids"], batch["sizes"], batch["gt_boxes"],
+                              batch["gt_valid"], deterministic=False, training=True,
+                              droppath_generator=self._generator(state.seed, state.step,
+                                                                 _DROPPATH, b),
+                              sample_generator=self._generator(state.seed, state.step,
+                                                               _SAMPLE, b),
+                              sample_draws=sample_draws, count_sum=self.count_sum)
         grad_norm = self._update(state, loss)
         metrics = {k: v.detach() for k, v in aux.items()}
         return state, self._global({**metrics, "loss": loss.detach(), "grad_norm": grad_norm})
@@ -108,6 +112,7 @@ class RCNNTrainer(Trainer):
     def params_from_jax(self, tree) -> Dict[str, torch.Tensor]:
         return rcnn_params_from_jax(tree, self.rcnn, self.in_channels)
 
+    @traced_step
     def train_step(self, state: TrainState, feats: List[torch.Tensor],
                    proposals: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                    draws: Optional[torch.Tensor] = None):
@@ -115,12 +120,13 @@ class RCNNTrainer(Trainer):
         valid); returns (state, metrics): loss_cls, loss_reg, num_pos, loss
         and grad_norm. `draws` [B, R] replaces the sampler's uniforms."""
         model = state.model
-        model.train()
-        loss, aux = model(feats, proposals["boxes"], proposals["valid"], batch["gt_boxes"],
-                          batch["gt_valid"], draws=draws,
-                          generator=self._generator(state.seed, state.step, _SAMPLE,
-                                                    proposals["boxes"].shape[0]),
-                          training=True, count_sum=self.count_sum)
+        with tracing.span("nerf_mae.forward"):
+            model.train()
+            loss, aux = model(feats, proposals["boxes"], proposals["valid"],
+                              batch["gt_boxes"], batch["gt_valid"], draws=draws,
+                              generator=self._generator(state.seed, state.step, _SAMPLE,
+                                                        proposals["boxes"].shape[0]),
+                              training=True, count_sum=self.count_sum)
         grad_norm = self._update(state, loss)
         metrics = {k: v.detach() for k, v in aux.items()}
         return state, self._global({**metrics, "loss": loss.detach(), "grad_norm": grad_norm})

@@ -46,6 +46,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import MAEConfig, TrainConfig
 from nerf_mae_torch.convert import params_from_jax
 from nerf_mae_torch.metrics import masked_mse, masked_psnr, one_rank
@@ -89,6 +90,16 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.AdamW
     seed: int
+
+
+def traced_step(train_step):
+    """A trainer's train_step inside the root span nerf_mae.train_step of
+    its step (tracing.py: on while torch.profiler records)."""
+    @functools.wraps(train_step)
+    def step(self, state: TrainState, *args, **kwargs):
+        with tracing.span(tracing.ROOT, step=state.step):
+            return train_step(self, state, *args, **kwargs)
+    return step
 
 
 def stream_seed(seed: int, step: int, stream: int) -> int:
@@ -167,8 +178,9 @@ class Trainer:
     def _update(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
         """Backward of `loss`, then apply_gradients. Returns the gradient
         norm before clipping."""
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with tracing.span("nerf_mae.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         return self.apply_gradients(state)
 
     def apply_gradients(self, state: TrainState) -> torch.Tensor:
@@ -179,18 +191,22 @@ class Trainer:
         resumed from a JAX state continues from JAX's); advances the step.
         Every rank clips the global gradient, so all make the same
         non-finite skip decision. Returns the gradient norm before
-        clipping."""
+        clipping. Spans: nerf_mae.optimizer, with nerf_mae.allreduce (on a
+        mesh), nerf_mae.clip and nerf_mae.adamw inside."""
         model, opt = state.model, state.optimizer
-        params = list(model.parameters())
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        all_reduce_grads(params, self.mesh)
-        grad_norm = self.clip([p.grad for p in params], self.train_cfg.clip_grad_norm)
-        lr = self.schedule(update_count(opt))
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with tracing.span("nerf_mae.optimizer"):
+            params = list(model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_grads(params, self.mesh)
+            with tracing.span("nerf_mae.clip"):
+                grad_norm = self.clip([p.grad for p in params], self.train_cfg.clip_grad_norm)
+            with tracing.span("nerf_mae.adamw"):
+                lr = self.schedule(update_count(opt))
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
         state.step += 1
         return grad_norm
 
@@ -207,10 +223,13 @@ class MAETrainer(Trainer):
         pred, token_mask = model(
             batch["grids"], deterministic, token_mask=token_mask,
             generator=generator, patched_pred=True, droppath_generator=droppath)
-        loss, aux = mae_loss(pred, batch["grids"], token_mask, batch["sizes"],
-                             self.mae_cfg, self.count_sum, self.spatial)
+        with tracing.span("nerf_mae.loss"):
+            loss, aux = mae_loss(pred, batch["grids"], token_mask, batch["sizes"],
+                                 self.mae_cfg, self.count_sum, self.spatial)
+            loss = tracing.mark(loss, "nerf_mae.loss")
         return loss, aux, pred, token_mask
 
+    @traced_step
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    token_mask: Optional[torch.Tensor] = None):
         """One optimizer step; returns (state, metrics) with the metrics as
@@ -218,12 +237,13 @@ class MAETrainer(Trainer):
         before clipping), the global batch's on a mesh. `token_mask`
         replaces the drawn mask (tests; on a mesh, this rank's rows)."""
         model = state.model
-        model.train()
-        b = batch["grids"].shape[0]
-        loss, aux, _, _ = self._losses(
-            model, batch, False,
-            self._generator(state.seed, state.step, _MASK, b),
-            self._generator(state.seed, state.step, _DROPPATH, b), token_mask)
+        with tracing.span("nerf_mae.forward"):
+            model.train()
+            b = batch["grids"].shape[0]
+            loss, aux, _, _ = self._losses(
+                model, batch, False,
+                self._generator(state.seed, state.step, _MASK, b),
+                self._generator(state.seed, state.step, _DROPPATH, b), token_mask)
         grad_norm = self._update(state, loss)
         return state, self._global({
             "loss": loss.detach(), "loss_rgb": aux["loss_rgb"].detach(),

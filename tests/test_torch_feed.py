@@ -404,7 +404,8 @@ def test_synthetic_hard_pretrains_on_jaxs_hard_grids():
 
 def test_log_dir_wandb_and_profile_dir(tmp_path, monkeypatch, caplog):
     """--log_dir writes jsonl; --wandb without wandb warns and goes on;
-    --profile_dir writes a chrome trace of the first --log_interval steps."""
+    --profile_dir writes a chrome trace of the first --log_interval steps
+    and, beside it, the table of their spans."""
     monkeypatch.setitem(sys.modules, "wandb", None)  # not importable
     with caplog.at_level("WARNING"):
         out = run_mae_pretrain.main([*MAE, "--steps", "2", "--log_interval", "2",
@@ -415,17 +416,22 @@ def test_log_dir_wandb_and_profile_dir(tmp_path, monkeypatch, caplog):
     assert "wandb requested but not installed" in caplog.text
     lines = (tmp_path / "logs" / "metrics_mae_swin_nano.jsonl").read_text().splitlines()
     assert [json.loads(x)["step"] for x in lines] == [2]
-    traces = list((tmp_path / "prof").glob("train_*.json"))
+    traces = [p for p in (tmp_path / "prof").glob("train_*.json")
+              if not p.name.endswith(".spans.json")]
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    # beside it, the port's span table of the same steps
+    spans = json.loads(traces[0].with_suffix(".spans.json").read_text())
+    assert spans["steps"] == 2
 
 
 def test_benchmark_profile_dir_traces_the_timed_steps(tmp_path):
     out = run_mae_pretrain.main([*MAE, "--mode", "benchmark", "--profile_dir",
                                  str(tmp_path / "prof"), "--prefetch", "1"])
     assert np.isfinite(out["loss"])
-    assert len(list((tmp_path / "prof").glob("mae_train_step_*.json"))) == 1
+    traces = list((tmp_path / "prof").glob("mae_train_step_*.json"))
+    assert sorted(p.name.endswith(".spans.json") for p in traces) == [False, True]
 
 
 def test_fcos_trains_from_the_device_corpus(tmp_path):
