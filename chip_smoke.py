@@ -12,7 +12,8 @@ Phases (any failure raises and the exit code is not 0):
   3. kernels: each hand-written kernel against its plain PyTorch version at
      every (stage, shift) of the swin_b 160^3 forward (batch 1, 2 and 8, bf16)
      and one float32 case, with errors, tolerances and CUDA-event times
-     beside the bound;
+     beside the bound; the fused block also as trained, keeping the rows its
+     backward reads (each row checked);
   4. the main path: two inference requests through
      nerf_mae_torch.inference.main at swin_b 160^3 (1 scene of 49-79 voxels
      a side each, padded to 160^3; the first also saves the features; random
@@ -22,9 +23,10 @@ Phases (any failure raises and the exit code is not 0):
   5. the erf path: the fused window-attention kernel through the same
      model with gelu="erf", compared with the plain composition;
   6. backward kernels: each against its plain backward at every (stage,
-     shift) of the swin_b 160^3 train step at batch 8 (bf16) and one
-     float32 case, errors against tolerances, CUDA-event times beside the
-     bound and the plain time; then both kernels forward and backward at
+     shift) of the swin_b 160^3 train step at batch 8 (bf16), the block's
+     from the rows its keeping forward kept, and one float32 case, errors
+     against tolerances, CUDA-event times beside the bound and the plain
+     time; then both kernels forward and backward at
      bf16 shapes off that path (128-token windows, heads of 12, 64 and 128),
      each backward twice, bitwise equal;
   7. the train main path: `nerf_mae_torch.run_mae_pretrain.main` trains
@@ -40,9 +42,10 @@ Phases (any failure raises and the exit code is not 0):
      forward and backward launches per kernel step;
   9. the same for the erf step: 22 fused-attention forward and backward
      launches;
- 10. profile: torch.profiler over one block forward and one block backward
-     at stage 0 and at stage 2 (batch 8, unshifted): device time per kernel
-     name, sorted, with launch counts and the sum;
+ 10. profile: torch.profiler over one block forward (keeping nothing, then
+     keeping its rows) and one block backward from those rows at stage 0
+     and at stage 2 (batch 8, unshifted): device time per kernel name,
+     sorted, with launch counts and the sum;
  11. swin_s kernel cases: the fused block forward and backward against their
      plain versions at every (stage, shift) of the swin_s 160^3 forward and
      train step at batch 8 (C 96 / 192 / 384, heads 3 / 6 / 12), bf16, at
@@ -192,6 +195,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import hashlib
 import importlib
 import json
@@ -255,6 +259,7 @@ from nerf_mae_torch.ops.fused_block import (
     fused_swin_block_bwd,
     fused_swin_block_bwd_plain,
     fused_swin_block_plain,
+    row_views,
 )
 from nerf_mae_torch.ops import nms
 from nerf_mae_torch.ops.anchors import anchor_padding_mask, anchors_on
@@ -359,6 +364,16 @@ def check_close(name, got, want, dtype):
     return max_abs
 
 
+def check_kept(name, got, want, dtype, m, c):
+    """check_close on a keeping forward's output and on each kept row set
+    (m padded rows, width c) against the plain version's (out, rows)."""
+    errs = [check_close(name, got[0], want[0], dtype)]
+    for row, g, w in zip(("h1", "qkv", "o", "x1", "h2", "f1", "g"),
+                         row_views(got[1], m, c, 4 * c), row_views(want[1], m, c, 4 * c)):
+        errs.append(check_close(f"{name} kept {row}", g, w, dtype))
+    return max(errs)
+
+
 def block_weights(c: int, heads: int, gen: torch.Generator, dev, dtype, window=(4, 4, 4)):
     """Random block parameters (torch layout) from `gen`, scaled so that
     attention is peaked and every branch matters. The four weight matrices
@@ -388,14 +403,18 @@ def block_args(w):
 def work(kind, shape, heads, dtype):
     """(FLOPs, bytes) that one call needs. FLOPs per real token: 24 C^2 +
     4 N C for the block, 8 C^2 + 4 N C for the attention (N = 64 keys per
-    window); their backwards recompute the forward and run two products per
-    forward product: 72 C^2 + 12 N C and 24 C^2 + 12 N C. Pad rows need no
-    product: their LN output is zero, so their keys and values are
-    qkv_bias, and their queries and outputs are cropped away. Bytes: x in
-    and out (the backward: x and dy in, dx out) in the compute dtype, the
-    weight matrices in the compute dtype, the float32 LN parameters, biases
-    and the [343, heads] rel-pos table, each once; a backward also writes
-    the float32 gradients of all of them once."""
+    window); their backwards are counted as a recompute of the forward plus
+    two products per forward product: 72 C^2 + 12 N C and 24 C^2 + 12 N C
+    (as perfbench/counts.py counts them; the block's backward now reads the
+    rows its forward kept instead, and runs 48 C^2 + 8 N C: PERF.md §7).
+    Pad rows need no product: their LN output is zero, so their keys and
+    values are qkv_bias, and their queries and outputs are cropped away.
+    Bytes: x in and out (the backward: x and dy in, dx out) in the compute
+    dtype, the weight matrices in the compute dtype, the float32 LN
+    parameters, biases and the [343, heads] rel-pos table, each once; a
+    backward also writes the float32 gradients of all of them once; the
+    block's keeping forward ("block_kept") also writes its rows once (15 C
+    values of each padded window-order row at F = 4 C)."""
     b, g0, g1, g2, c = shape
     tokens, n, e = b * g0 * g1 * g2, 64, torch.finfo(dtype).bits // 8
     block = kind.startswith("block")
@@ -405,6 +424,8 @@ def work(kind, shape, heads, dtype):
     if kind.endswith("bwd"):
         flops = tokens * ((72 if block else 24) * c * c + 12 * n * c)
         nbytes += tokens * c * e + 4 * (mats + vecs + 343 * heads)
+    if kind == "block_kept":
+        nbytes += b * math.prod(-(-g // 4) * 4 for g in (g0, g1, g2)) * 15 * c * e
     return flops, nbytes
 
 
@@ -450,14 +471,16 @@ def ptxas_summary():
 
 def phase_kernels(dev):
     """Both kernels against their plain versions at every (stage, shift)
-    of the swin_b 160^3 forward, at batch 1, 2 and 8. Returns, per batch and
-    kernel, sums over the 22 launches of one forward of the measured
-    per-shape medians (each case weighted by its launches per forward)."""
+    of the swin_b 160^3 forward, at batch 1, 2 and 8, the block both as
+    served ("block": nothing kept) and as trained ("block_kept": its rows
+    kept for the backward, each checked). Returns, per batch and kernel,
+    sums over the 22 launches of one forward of the measured per-shape
+    medians (each case weighted by its launches per forward)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     summary = {batch: {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0,
                                bytes=0.0, max_abs_err=0.0)
-                       for k in ("block", "attention")}
+                       for k in ("block", "block_kept", "attention")}
                for batch in KERNEL_BATCHES}
     for batch in KERNEL_BATCHES:
         for (stage, shifted), weight in LAUNCHES_PER_FORWARD.items():
@@ -470,18 +493,22 @@ def phase_kernels(dev):
             tag = f"stage{stage} {list(shape)} shift {shift}"
             attn = (x, w["qkv_weight"], w["qkv_bias"], w["proj_weight"],
                     w["proj_bias"], w["bias_table"], (4, 4, 4), shift, heads)
+            blk = (x, *block_args(w), keep, (4, 4, 4), shift, heads, 1e-5)
             runs = {
-                "block": (
-                    lambda: fused_swin_block(x, *block_args(w), keep, (4, 4, 4), shift, heads, 1e-5),
-                    lambda: fused_swin_block_plain(x, *block_args(w), keep, (4, 4, 4), shift, heads, 1e-5)),
+                "block": (lambda: fused_swin_block(*blk),
+                          lambda: fused_swin_block_plain(*blk), check_close),
+                "block_kept": (lambda: fused_swin_block(*blk, keep_rows=True),
+                               lambda: fused_swin_block_plain(*blk, keep_rows=True),
+                               functools.partial(check_kept, m=batch * (-(-g // 4) * 4) ** 3,
+                                                 c=c)),
                 "attention": (
                     lambda: fused_window_attention(*attn),
-                    lambda: fused_window_attention_plain(*attn)),
+                    lambda: fused_window_attention_plain(*attn), check_close),
             }
-            for kind, (kernel_fn, plain_fn) in runs.items():
+            for kind, (kernel_fn, plain_fn, check) in runs.items():
                 got = kernel_fn()
                 torch.cuda.synchronize()
-                err = check_close(f"{kind} {tag} bf16", got, plain_fn(), torch.bfloat16)
+                err = check(f"{kind} {tag} bf16", got, plain_fn(), torch.bfloat16)
                 ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
                 flops, nbytes = work(kind, shape, heads, torch.bfloat16)
                 b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
@@ -494,7 +521,7 @@ def phase_kernels(dev):
                 s["flops"] += weight * flops
                 s["bytes"] += weight * nbytes
                 s["max_abs_err"] = max(s["max_abs_err"], err)
-            del x, w, got, attn, runs
+            del x, w, got, blk, attn, runs
             torch.cuda.empty_cache()
 
     # one small float32 case of each kernel (padded, shifted)
@@ -693,8 +720,10 @@ def phase_backward(dev):
     """Both backward kernels against their plain backwards at every (stage,
     shift) of the swin_b 160^3 train step at batch 8, bf16, with the
     weights as the model hands them over (float32 to the block, bf16 casts
-    to the attention). Returns per kernel the sums over the 22 launches of
-    one train step of the measured medians."""
+    to the attention); the block's backward (and its plain version) from
+    the rows its keeping forward kept, as in training. Returns per kernel
+    the sums over the 22 launches of one train step of the measured
+    medians."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     summary = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
@@ -710,11 +739,14 @@ def phase_backward(dev):
         keep = train_keep(TRAIN_BATCH, dev)
         tag = f"stage{stage} {list(shape)} shift {shift}"
         block = (x, *block_args(w), keep, dy, (4, 4, 4), shift, heads, 1e-5)
+        fwd = (x, *block_args(w), keep, (4, 4, 4), shift, heads, 1e-5)
+        rows = fused_swin_block(*fwd, keep_rows=True)[1]
+        plain_rows = fused_swin_block_plain(*fwd, keep_rows=True)[1]
         attn = (x, w["qkv_weight"].to(bf16), w["qkv_bias"], w["proj_weight"].to(bf16),
                 w["bias_table"], dy, (4, 4, 4), shift, heads)
         runs = {
-            "block_bwd": (lambda: fused_swin_block_bwd(*block),
-                          lambda: fused_swin_block_bwd_plain(*block)),
+            "block_bwd": (lambda: fused_swin_block_bwd(*block, rows=rows),
+                          lambda: fused_swin_block_bwd_plain(*block, rows=plain_rows)),
             "attention_bwd": (lambda: fused_window_attention_bwd(*attn),
                               lambda: fused_window_attention_bwd_plain(*attn)),
         }
@@ -736,7 +768,7 @@ def phase_backward(dev):
             s["flops"] += weight * flops
             s["bytes"] += weight * nbytes
             s["max_abs_err"] = max(s["max_abs_err"], err)
-        del x, dy, w, block, attn, runs
+        del x, dy, w, block, fwd, rows, plain_rows, attn, runs
         torch.cuda.empty_cache()
 
     # one small float32 case of each (padded, shifted, a dropped branch)
@@ -1086,7 +1118,8 @@ def profile_summary(prof):
 
 
 def phase_profile(dev):
-    """torch.profiler over one block forward and one block backward call at
+    """torch.profiler over one block forward call (keeping nothing, and
+    keeping its rows) and one block backward call (from the kept rows) at
     stage 0 and at stage 2, batch 8, unshifted (phase 6's shapes): device
     time per kernel name, sorted, with launch counts and the sum, as the
     sub-launch breakdown of each call."""
@@ -1100,10 +1133,13 @@ def phase_profile(dev):
         dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         keep = train_keep(TRAIN_BATCH, dev)
         block = (x, *block_args(w), keep)
+        kept = fused_swin_block(*block, (4, 4, 4), (0, 0, 0), heads, 1e-5, keep_rows=True)[1]
         calls = {
             "forward": lambda: fused_swin_block(*block, (4, 4, 4), (0, 0, 0), heads, 1e-5),
+            "kept forward": lambda: fused_swin_block(*block, (4, 4, 4), (0, 0, 0), heads,
+                                                     1e-5, keep_rows=True),
             "backward": lambda: fused_swin_block_bwd(*block, dy, (4, 4, 4), (0, 0, 0),
-                                                     heads, 1e-5),
+                                                     heads, 1e-5, rows=kept),
         }
         for what, fn in calls.items():
             fn()
@@ -1121,7 +1157,7 @@ def phase_profile(dev):
                 log("  torch.profiler recorded no device time for these kernels")
             for ms, count, key in rows:
                 log(f"    {ms:9.4f} ms  {100 * ms / max(total, 1e-9):5.1f}%  x{count:<3d} {key[:120]}")
-        del x, dy, w, block, calls
+        del x, dy, w, block, kept, calls
         torch.cuda.empty_cache()
 
 
@@ -1130,8 +1166,9 @@ def phase_swin_s_kernels(dev):
     every (stage, shift) of the swin_s 160^3 forward and train step at batch
     8, bf16: the forward with the bf16 weight casts and the backward with
     the float32 parameters (as the model hands them over in training),
-    droppath factors of a train step. Returns per kernel the sums over the
-    22 launches of one step of the measured medians."""
+    droppath factors of a train step, each backward from the rows its
+    keeping forward kept. Returns per kernel the sums over the 22 launches
+    of one step of the measured medians."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     bf16 = torch.bfloat16
@@ -1148,10 +1185,14 @@ def phase_swin_s_kernels(dev):
         dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
         keep = train_keep(HEAD_BATCH, dev)
         tag = f"swin_s stage{stage} {list(shape)} shift {shift} bf16"
+        fwd = (x, *block_args(w), keep, (4, 4, 4), shift, heads_, 1e-5)
+        rows = fused_swin_block(*fwd, keep_rows=True)[1]
+        plain_rows = fused_swin_block_plain(*fwd, keep_rows=True)[1]
         for kind, fn, plain_fn, args in (
                 ("block", fused_swin_block, fused_swin_block_plain,
                  (x, *block_args(wf), keep, (4, 4, 4), shift, heads_, 1e-5)),
-                ("block_bwd", fused_swin_block_bwd, fused_swin_block_bwd_plain,
+                ("block_bwd", functools.partial(fused_swin_block_bwd, rows=rows),
+                 functools.partial(fused_swin_block_bwd_plain, rows=plain_rows),
                  (x, *block_args(w), keep, dy, (4, 4, 4), shift, heads_, 1e-5))):
             got = fn(*args)
             torch.cuda.synchronize()
@@ -1174,7 +1215,7 @@ def phase_swin_s_kernels(dev):
             s["flops"] += weight * flops
             s["bytes"] += weight * nbytes
             s["max_abs_err"] = max(s["max_abs_err"], err)
-        del x, dy, w, wf
+        del x, dy, w, wf, fwd, rows, plain_rows
         torch.cuda.empty_cache()
     for kind, s in summary.items():
         log(f"  {kind} per swin_s batch-{HEAD_BATCH} step (sum of 22 measured medians): "

@@ -98,8 +98,8 @@ class MAEConfig:
     per_sample_mask: bool = True
     compute_dtype: str = "bfloat16"  # dtype of matmuls/convs; params stay fp32
     # torch.utils.checkpoint on each Swin block of the stages that remat, in
-    # training; stages that run the fused block kernel never remat (its
-    # backward recomputes the block from the block's input anyway).
+    # training; blocks that run the fused block kernel never remat (its
+    # forward keeps the rows its backward reads).
     remat: bool = True
     # checkpoint the UNETR decoder blocks and the subpixel head too
     decoder_remat: bool = False

@@ -2,26 +2,30 @@
 //
 // Replaces the TPU kernel
 // nerf_mae_tpu/ops/pallas_block.py:_fused_block_bwd_kernel (with the
-// window-order staging of its `_bwd` glue). Like that kernel it saves
-// nothing from the forward: it recomputes the block from x and the
-// parameters, then runs the hand-derived VJP, returning dx and the float32
-// gradients of the 12 parameters plus dlogit [heads, N, N] (the caller
-// scatters dlogit into the [343, heads] bias table). The JAX kernel's
-// rounding points are kept: T(df2) feeds both of its products; df1 =
-// dg * gelu'(f1) in float32, rounded only as an operand; T(do), T(p) and
-// T(dl) feed the attention products; dq is scaled after its product; dk uses
-// the scaled T(q); T(dqkv) feeds dWqkv and dh1; bias, LayerNorm and logit
-// sums are of float32 values; dx is rounded to T last.
+// window-order staging of its `_bwd` glue). That kernel saves nothing from
+// the forward and recomputes the block, as a TPU step must; this card has
+// the room to keep the rows, so the forward (fused_block.cu) keeps what the
+// VJP reads, h1, qkv, o, x1 and h2 [M, C | 3C | C | C | C] and f1 and g
+// [M, F] in T, in window order with the pad rows, and this kernel reads
+// them instead of running the forward's first six links again. It runs the
+// hand-derived VJP, returning dx and the float32 gradients of the 12
+// parameters plus dlogit [heads, N, N] (the caller scatters dlogit into the
+// [343, heads] bias table). The rows are bitwise what a recompute would
+// give (the same links on the same inputs), and the JAX kernel's rounding
+// points are kept: T(df2) feeds both of its products; df1 = dg * gelu'(f1)
+// in float32, rounded only as an operand; T(do), T(p) and T(dl) feed the
+// attention products; dq is scaled after its product; dk uses the scaled
+// T(q); T(dqkv) feeds dWqkv and dh1; bias, LayerNorm and logit sums are of
+// float32 values; dx is rounded to T last. The LayerNorm statistics are
+// recomputed from x and x1 in the row passes that read them anyway.
 //
-// What bounds it on the H100: ~72 C^2 FLOPs per token (recompute and two
-// products per forward product) against x, dy and dx: by operations at every
-// stage when nothing but those crosses device memory. The TPU kernel keeps
-// the block in VMEM; a CTA cannot hold a block's weights (12 C^2 bf16), so
-// here the block is a chain of launches over window-order rows
-// (swin_common.cuh), and the design makes each link cheap:
-//   recompute  gather+LN1 -> h1; qkv product; tensor-core attention -> o;
-//              proj product with the residual -> x1; LN2 -> h2; fc1 product
-//              keeping f1 and g
+// What bounds it on the H100: ~48 C^2 FLOPs per token (two products per
+// forward product) against x, dy and dx and the kept rows, ~36 C bytes per
+// token in bf16: ~1.3 C FLOPs a byte, so by bytes at C = 128 (stage 0, the
+// kept rows) and by operations from C = 256 on. The TPU kernel keeps the
+// block in VMEM; a CTA cannot hold a block's weights (12 C^2 bf16), so here
+// the VJP is a chain of launches over window-order rows (swin_common.cuh),
+// and the design makes each link cheap:
 //   MLP        df2 = dout * keep_m -> T(df2) and db2 partials (one row pass);
 //              dg = T(df2) W2 with the GELU derivative in the epilogue ->
 //              T(df1) and db1 partials; dh2 = T(df1) W1; LN2 backward ->
@@ -38,10 +42,11 @@
 // `.astype(d)`); float32 rows stay only where they are read row-wise (dh2,
 // then dh1 in the same buffer, and dx1): 8 C bytes per row. No float
 // atomics: every gradient is bitwise deterministic.
-// What is left of the gap: at C = 128 the recompute and the operands (58 C
-// bytes of scratch per row: 25 C bf16 values, 2 C float32) are written once
-// and read once or twice each; at C = 512 the products run at ~100 TFLOP/s,
-// a tenth of the tensor-core rate.
+// What is left of the gap: the scratch (T(df2) then T(do), T(df1) then
+// T(dqkv), T(dy_attn), and the two float32 rows: 20 C bytes per row at
+// F = 4 C) and the kept rows are written once and read once or twice each;
+// at C = 512 the products run at ~100 TFLOP/s, a tenth of the tensor-core
+// rate.
 #include <algorithm>
 
 #include "swin_common.cuh"
@@ -226,9 +231,11 @@ struct Dims {
   int B, G0, G1, G2, C, F, heads, w0, w1, w2, s0, s1, s2;
 };
 
+// The VJP's scratch. df2 is dead once dW2 is summed and df1 once dW1 is, so
+// dO takes df2's rows and dqkv df1's.
 template <typename T>
 struct Work {
-  T *h1, *qkv, *o, *x1, *h2, *f1, *g, *df2, *df1, *dya, *dO, *dqkv;
+  T *df2, *df1, *dya, *dO, *dqkv;
   float *dh, *dx1, *part, *tmp;
 };
 
@@ -237,18 +244,9 @@ static size_t carve(const Dims& d, char* base, Work<T>& w) {
   Geom g = make_geom(d.B, d.G0, d.G1, d.G2, d.w0, d.w1, d.w2, d.s0, d.s1, d.s2);
   const long long M = (long long)d.B * g.nW * g.N, C = d.C, F = d.F;
   Carve cv{base};
-  w.h1 = cv.take<T>(M * C);
-  w.qkv = cv.take<T>(M * 3 * C);
-  w.o = cv.take<T>(M * C);
-  w.x1 = cv.take<T>(M * C);
-  w.h2 = cv.take<T>(M * C);
-  w.f1 = cv.take<T>(M * F);
-  w.g = cv.take<T>(M * F);
-  w.df2 = cv.take<T>(M * C);
-  w.df1 = cv.take<T>(M * F);
+  w.df2 = w.dO = cv.take<T>(M * C);
+  w.df1 = w.dqkv = cv.take<T>(M * std::max(F, 3 * C));
   w.dya = cv.take<T>(M * C);
-  w.dO = cv.take<T>(M * C);
-  w.dqkv = cv.take<T>(M * 3 * C);
   w.dh = cv.take<float>(M * C);
   w.dx1 = cv.take<float>(M * C);
   // partials: row passes (3 sums), the dgelu product's column sums, weight
@@ -272,68 +270,47 @@ static size_t carve(const Dims& d, char* base, Work<T>& w) {
   } while (0)
 
 // ptrs: inputs x, dy, ln1_s, ln1_b, Wqkv, bqkv, Wp, bp, ln2_s, ln2_b, W1, b1,
-// W2, b2, rel_table [(2w-1)^3, heads], keep [B, 2]; then outputs dx, dln1_s,
-// dln1_b, dWqkv, dbqkv, dWp, dbp, dln2_s, dln2_b, dW1, db1, dW2, db2,
-// dlogit [heads, N, N]. Weights and their gradients are in torch Linear
-// layout [out, in]; gradients are float32.
+// W2, b2, rel_table [(2w-1)^3, heads], keep [B, 2]; the rows the forward
+// kept, h1, qkv, o, x1, h2, f1, g; then outputs dx, dln1_s, dln1_b, dWqkv,
+// dbqkv, dWp, dbp, dln2_s, dln2_b, dW1, db1, dW2, db2, dlogit [heads, N, N].
+// Weights and their gradients are in torch Linear layout [out, in];
+// gradients are float32.
 template <typename T>
 static int run(const Dims& d, float eps, float scale, void* const* p, void* ws,
                cudaStream_t st) {
   Geom g = make_geom(d.B, d.G0, d.G1, d.G2, d.w0, d.w1, d.w2, d.s0, d.s1, d.s2);
   const int M = d.B * g.nW * g.N, C = d.C, F = d.F;
-  const int rows_grid = (M + 7) / 8;
   const int rp = row_pass_ctas(M), rp_per = (M + rp - 1) / rp;
   const int tiles = (M + gemm_row_tile<T>() - 1) / gemm_row_tile<T>();
   Work<T> w;
   carve<T>(d, (char*)ws, w);
+  // the biases and the LN shifts (p[3], 5, 7, 9, 11, 13) reach only the
+  // forward's rows, which are kept
   const T* x = (const T*)p[0];
   const T* dy = (const T*)p[1];
-  const float *ln1_s = (const float*)p[2], *ln1_b = (const float*)p[3];
+  const float* ln1_s = (const float*)p[2];
   const T* Wqkv = (const T*)p[4];
-  const float* bqkv = (const float*)p[5];
   const T* Wp = (const T*)p[6];
-  const float* bp = (const float*)p[7];
-  const float *ln2_s = (const float*)p[8], *ln2_b = (const float*)p[9];
+  const float* ln2_s = (const float*)p[8];
   const T* W1 = (const T*)p[10];
-  const float* b1 = (const float*)p[11];
   const T* W2 = (const T*)p[12];
-  const float* b2 = (const float*)p[13];
   const float* rel = (const float*)p[14];
   const float* keep = (const float*)p[15];
-  T* dx = (T*)p[16];
-  float *dln1_s = (float*)p[17], *dln1_b = (float*)p[18];
-  float *dWqkv = (float*)p[19], *dbqkv = (float*)p[20];
-  float *dWp = (float*)p[21], *dbp = (float*)p[22];
-  float *dln2_s = (float*)p[23], *dln2_b = (float*)p[24];
-  float *dW1 = (float*)p[25], *db1 = (float*)p[26];
-  float *dW2 = (float*)p[27], *db2 = (float*)p[28];
-  float* dlogit = (float*)p[29];
+  const T *h1 = (const T*)p[16], *qkv = (const T*)p[17], *o = (const T*)p[18];
+  const T *x1 = (const T*)p[19], *h2 = (const T*)p[20], *f1 = (const T*)p[21];
+  const T* gl = (const T*)p[22];
+  T* dx = (T*)p[23];
+  float *dln1_s = (float*)p[24], *dln1_b = (float*)p[25];
+  float *dWqkv = (float*)p[26], *dbqkv = (float*)p[27];
+  float *dWp = (float*)p[28], *dbp = (float*)p[29];
+  float *dln2_s = (float*)p[30], *dln2_b = (float*)p[31];
+  float *dW1 = (float*)p[32], *db1 = (float*)p[33];
+  float *dW2 = (float*)p[34], *db2 = (float*)p[35];
+  float* dlogit = (float*)p[36];
   // the q-th column sum of a row pass
   auto row_sum = [&](int q, float* out) {
     return launch_colsum<float>(w.part + (size_t)q * rp * C, rp, C, w.tmp, out, st);
   };
-
-  // ---- recompute the forward ----
-  CK(with_row_u(C, [&](auto u) {
-    gather_rows<T, true, decltype(u)::value><<<rows_grid, 256, 0, st>>>(x, ln1_s, ln1_b, eps,
-                                                                       g, C, M, w.h1);
-    return cudaGetLastError();
-  }));
-  Epi e = {};
-  e.g = g;
-  e.keep = keep;
-  e.bias = bqkv; e.scale = scale; e.n_scaled = C; e.out = w.qkv;
-  CK((launch_gemm<T, FORM_NT, EPI_QKV>(w.h1, Wqkv, M, 3 * C, C, 0, e, st)));
-  CK(launch_attn<T>(w.qkv, rel, g, C, d.heads, w.o, st));
-  e.bias = bp; e.x = x; e.out = w.x1;
-  CK((launch_gemm<T, FORM_NT, EPI_PROJ_RESID>(w.o, Wp, M, C, C, 0, e, st)));
-  CK(with_row_u(C, [&](auto u) {
-    ln_rows<T, decltype(u)::value><<<rows_grid, 256, 0, st>>>(w.x1, ln2_s, ln2_b, eps, C, M,
-                                                             w.h2);
-    return cudaGetLastError();
-  }));
-  e.bias = b1; e.out = w.g; e.aux = w.f1;
-  CK((launch_gemm<T, FORM_NT, EPI_FC1_BOTH>(w.h2, W1, M, F, C, 0, e, st)));
 
   // ---- MLP branch: out = x1 + f2 * keep_m ----
   CK(with_row_u(C, [&](auto u) {
@@ -344,17 +321,17 @@ static int run(const Dims& d, float eps, float scale, void* const* p, void* ws,
   CK(row_sum(0, db2));
   Epi e2 = {};
   e2.g = g;
-  e2.out = w.df1; e2.aux = w.f1; e2.colpart = w.part;
+  e2.out = w.df1; e2.aux = (void*)f1; e2.colpart = w.part;
   CK((launch_gemm<T, FORM_NN, EPI_DGELU>(w.df2, W2, M, F, C, 0, e2, st)));
   CK(launch_colsum<float>(w.part, tiles, F, w.tmp, db1, st));
-  CK((weight_grad<T>(w.df2, w.g, M, C, F, w.part, dW2, st)));
+  CK((weight_grad<T>(w.df2, gl, M, C, F, w.part, dW2, st)));
   e2 = Epi{};
   e2.out = w.dh;
   CK((launch_gemm<T, FORM_NN, EPI_F32>(w.df1, W1, M, C, F, 0, e2, st)));
-  CK((weight_grad<T>(w.df1, w.h2, M, F, C, w.part, dW1, st)));
+  CK((weight_grad<T>(w.df1, h2, M, F, C, w.part, dW1, st)));
   CK(with_row_u(C, [&](auto u) {
     ln2_bwd_rows<T, decltype(u)::value><<<rp, 256, 0, st>>>(
-        w.dh, w.x1, ln2_s, dy, keep, eps, g, C, M, rp_per, w.dx1, w.dya, w.part);
+        w.dh, x1, ln2_s, dy, keep, eps, g, C, M, rp_per, w.dx1, w.dya, w.part);
     return cudaGetLastError();
   }));
   CK(row_sum(0, dln2_s));
@@ -364,10 +341,10 @@ static int run(const Dims& d, float eps, float scale, void* const* p, void* ws,
   // ---- attention branch: x1 = x + y * keep_a ----
   e2.out = w.dO;
   CK((launch_gemm<T, FORM_NN, EPI_T>(w.dya, Wp, M, C, C, 0, e2, st)));
-  CK((weight_grad<T>(w.dya, w.o, M, C, C, w.part, dWp, st)));
-  CK(launch_attn_bwd<T>(w.qkv, w.dO, rel, g, C, d.heads, scale, w.dqkv, w.part, w.tmp,
+  CK((weight_grad<T>(w.dya, o, M, C, C, w.part, dWp, st)));
+  CK(launch_attn_bwd<T>(qkv, w.dO, rel, g, C, d.heads, scale, w.dqkv, w.part, w.tmp,
                         dlogit, dbqkv, st));
-  CK((weight_grad<T>(w.dqkv, w.h1, M, 3 * C, C, w.part, dWqkv, st)));
+  CK((weight_grad<T>(w.dqkv, h1, M, 3 * C, C, w.part, dWqkv, st)));
   e2.out = w.dh;
   CK((launch_gemm<T, FORM_NN, EPI_F32>(w.dqkv, Wqkv, M, C, 3 * C, 0, e2, st)));
   CK(with_row_u(C, [&](auto u) {

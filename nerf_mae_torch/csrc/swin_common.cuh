@@ -297,7 +297,7 @@ enum Epilogue {
   EPI_FC1_GELU,       // f1 = T(T(acc) + T(b)); g = T(gelu_tanh(f1))
   EPI_FC2_RESID_OUT,  // f2 = T(T(acc) + T(b)); out[src] = T(x1 + T(f2 * T(keep_m)))
   EPI_PROJ_OUT,       // out[src] = T(acc + b)
-  EPI_FC1_BOTH,       // as EPI_FC1_GELU, and f1 kept in aux (backward recompute)
+  EPI_FC1_BOTH,       // as EPI_FC1_GELU, and f1 kept in aux for the backward
   // backward products
   EPI_PART,           // out[z][m, n] = acc: split partials of a weight gradient
   EPI_F32,            // out[m, n] = acc (float32 rows read row-wise later)

@@ -20,8 +20,9 @@ backwards are kernels too.
 Training (deterministic=False) draws the per-sample stochastic-depth keep
 factors from a droppath generator; a stage whose `remat` is on runs each
 block under torch.utils.checkpoint, except where the fused block kernel
-runs (it recomputes the block in its backward already: swin.py:323-342 of
-the JAX package).
+runs: as in the JAX package (swin.py:323-342) that block is never
+checkpointed, and its forward keeps the rows its backward reads
+(FusedSwinBlockFn) instead of recomputing the block.
 
 On a space axis (`spatial`, parallel.spatial.set_spatial) the trunk takes
 and returns slabs in the even layout; each stage relayouts its tokens to

@@ -156,14 +156,20 @@ def attention_parts(h, qkv_weight, qkv_bias, bias_table, window, padded,
     q = (qkv[0] * hd ** -0.5).to(d)
     k = qkv[1].to(d)
     v = qkv[2].to(d)
-    logits = mm_f32(q, k.transpose(-1, -2))
-    logits = logits + relative_position_bias(bias_table, window)[None, None]
-    mask = shift_mask_tensor(padded, window, shift, h.device)
-    if mask is not None:
-        logits = logits + mask[None, :, None]
-    p = torch.softmax(logits, dim=-1)
+    p = attention_probs(q, k, bias_table, window, padded, shift)
     o = mm_f32(p.to(d), v).permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
     return q, k, v, p, o
+
+
+def attention_probs(q, k, bias_table, window, padded, shift):
+    """The float32 softmax [B, nW, heads, N, N] of q k^T + rel_bias +
+    shift_mask, q (scaled) and k in T, [B, nW, heads, N, hd]."""
+    logits = mm_f32(q, k.transpose(-1, -2))
+    logits = logits + relative_position_bias(bias_table, window)[None, None]
+    mask = shift_mask_tensor(padded, window, shift, q.device)
+    if mask is not None:
+        logits = logits + mask[None, :, None]
+    return torch.softmax(logits, dim=-1)
 
 
 def attention_bwd(q, k, v, p, do):

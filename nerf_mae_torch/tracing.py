@@ -34,8 +34,10 @@ its own); the backward's last piece ends when the backward does. The
 gradient passes through untouched.
 
 `count(name, n)` adds to a dict. `counters()` returns those counts with the
-hand-written kernels' `.launches` and a mesh's `collectives` /
-`grad_bytes`, read where they live.
+hand-written kernels' `.launches`, the fused block's `.kept` and
+`.kept_bytes` (calls that kept their rows for the backward, and those
+rows' bytes) and a mesh's `collectives` / `grad_bytes`, read where they
+live.
 
 Records are capped at MAX_RECORDS; `records()` reads them without
 draining and `reset()` clears records and counts. `table(prof)` is the
@@ -255,8 +257,8 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters(mesh=None) -> Dict[str, int]:
-    """The counts, the hand-written kernels' launches and, given a mesh,
-    its collectives and gradient bytes."""
+    """The counts, the hand-written kernels' launches, the fused block's
+    kept rows and, given a mesh, its collectives and gradient bytes."""
     from nerf_mae_torch.ops import fused_attention, fused_block
     with _lock:
         out = dict(_counts)
@@ -264,6 +266,8 @@ def counters(mesh=None) -> Dict[str, int]:
                fused_attention.fused_window_attention,
                fused_attention.fused_window_attention_bwd):
         out[f"{fn.__name__}.launches"] = fn.launches
+    out["fused_swin_block.kept"] = fused_block.fused_swin_block.kept
+    out["fused_swin_block.kept_bytes"] = fused_block.fused_swin_block.kept_bytes
     if mesh is not None:
         out["mesh.collectives"] = mesh.collectives
         out["mesh.grad_bytes"] = mesh.grad_bytes

@@ -33,10 +33,12 @@ from nerf_mae_torch.ops.fused_attention import (
     fused_window_attention_plain,
 )
 from nerf_mae_torch.ops.fused_block import (
+    FusedSwinBlockFn,
     fused_swin_block,
     fused_swin_block_bwd,
     fused_swin_block_bwd_plain,
     fused_swin_block_plain,
+    row_views,
 )
 
 pytestmark = pytest.mark.cuda
@@ -207,6 +209,73 @@ def test_every_parameter_gets_a_gradient(dev, gelu):
         assert prm.grad is not None, name
         assert torch.isfinite(prm.grad).all(), name
         assert prm.grad.abs().max() > 0, name
+
+
+# the swin_b stages' widths and heads on small grids, stage 2's 10^3
+# padded to 12^3, each with and without the shift
+KEEP_CASES = [  # shape, heads, shift
+    ((2, 8, 8, 8, 128), 4, (0, 0, 0)),
+    ((2, 8, 8, 8, 128), 4, (2, 2, 2)),
+    ((2, 8, 8, 8, 256), 8, (0, 0, 0)),
+    ((2, 8, 8, 8, 256), 8, (2, 2, 2)),
+    ((2, 10, 10, 10, 512), 16, (0, 0, 0)),
+    ((2, 10, 10, 10, 512), 16, (2, 2, 2)),
+]
+
+
+@pytest.mark.parametrize("shape,heads,shift", KEEP_CASES)
+def test_function_keeps_rows_and_matches_plain(dev, shape, heads, shift):
+    """FusedSwinBlockFn under autograd, bf16, stochastic-depth keep factors
+    with a dropped branch of each kind: the kept row sets match the plain
+    forward's at the forward tolerance; the forward keeps its rows once,
+    the backward kernel runs once from them, dx and the 13 gradients match
+    the plain backward at the backward tolerance and equal the standalone
+    backward's bitwise, and a second run gives bitwise equal outputs and
+    gradients. Under no_grad nothing is kept and the output is bitwise the
+    keeping forward's."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    c = shape[-1]
+    w = _weights(c, heads, gen, dev)  # float32, as the model passes them
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    keep = torch.tensor([[1 / 0.9, 0.0], [0.0, 1 / 0.9]], device=dev)
+    static = (WINDOW, shift, heads, 1e-5)
+    m = shape[0] * math.prod(-(-g // 4) * 4 for g in shape[1:4])  # padded rows
+    got_out, rows = fused_swin_block(x, *w, keep, *static, keep_rows=True)
+    want_out, want_rows = fused_swin_block_plain(x, *w, keep, *static, keep_rows=True)
+    assert rows.shape == want_rows.shape and rows.dtype == torch.bfloat16
+    _close(got_out, want_out, torch.bfloat16)
+    for got, want in zip(row_views(rows, m, c, 4 * c), row_views(want_rows, m, c, 4 * c)):
+        _close(got, want, torch.bfloat16)
+
+    def train_call():
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        before = (fused_swin_block.kept, fused_swin_block.kept_bytes,
+                  fused_swin_block_bwd.launches)
+        out = FusedSwinBlockFn.apply(*leaves, keep, *static)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        assert (fused_swin_block.kept - before[0], fused_swin_block.kept_bytes - before[1],
+                fused_swin_block_bwd.launches - before[2]) == (1, rows.numel() * 2, 1)
+        return out.detach(), [t.grad for t in leaves]
+
+    out, grads = train_call()
+    out2, grads2 = train_call()
+    assert torch.equal(out, out2)
+    for i, (a, b) in enumerate(zip(grads, grads2)):
+        assert torch.equal(a, b), i
+    standalone = fused_swin_block_bwd(x, *w, keep, dy, *static)
+    for i, (a, b) in enumerate(zip(grads, standalone)):
+        assert torch.equal(a, b), i
+    _grads_close(grads, fused_swin_block_bwd_plain(x, *w, keep, dy, *static), torch.bfloat16)
+    assert torch.equal(out, got_out)
+    kept = fused_swin_block.kept
+    with torch.no_grad():
+        served = FusedSwinBlockFn.apply(x, *w, keep, *static)
+    torch.cuda.synchronize()
+    assert fused_swin_block.kept == kept
+    assert torch.equal(served, out)
 
 
 def test_fused_block_bwd_kernel_is_bitwise_repeatable(dev):

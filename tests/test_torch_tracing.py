@@ -102,7 +102,8 @@ def test_off_records_nothing(monkeypatch):
         seen.add(fn)
         todo.extend(f for f, _ in fn.next_functions)
     assert not tracing.on()
-    assert tracing.records() == [] and all(k.endswith(".launches") for k in tracing.counters())
+    assert tracing.records() == [] and all(
+        k.endswith((".launches", ".kept", ".kept_bytes")) for k in tracing.counters())
     assert any(n.startswith("Optimizer.step") for n in names)  # the spy sees ranges
     assert not [n for n in names if n.startswith("nerf_mae.")]
     assert events == [] and marks == []
