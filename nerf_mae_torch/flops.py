@@ -1,5 +1,7 @@
 """Analytic FLOPs of the MAE pretraining model (counterpart of
-nerf_mae_tpu/flops.py, same counts).
+nerf_mae_tpu/flops.py, same counts) and of the dense downstream heads
+(models/heads.py: VoxelSemantics3D, VoxelSR3D), which the JAX package does
+not count.
 
 Model matmul/conv FLOPs (2*M*N*K per product) of one forward per grid; the
 train step counts 3x the forward (forward plus ~2x backward), the usual
@@ -19,13 +21,9 @@ from nerf_mae_torch.config import MAEConfig
 H100_BF16_PEAK_FLOPS = 989e12
 
 
-def mae_flops_per_grid(cfg: MAEConfig) -> Dict[str, float]:
-    """Per-component forward FLOPs for one input grid (batch element).
-
-    Returns a dict of component -> FLOPs plus:
-      fwd_total:   forward FLOPs/grid
-      train_total: 3 * fwd_total (fwd + bwd model FLOPs)
-    """
+def _trunk_and_decoders(cfg: MAEConfig) -> Dict[str, float]:
+    """Forward FLOPs per grid of the patch embed, the Swin stages, the
+    merges and the UNETR decoders 4/3/2."""
     s = cfg.swin
     E = s.embed_dim
     R = cfg.resolution
@@ -66,8 +64,21 @@ def mae_flops_per_grid(cfg: MAEConfig) -> Dict[str, float]:
         f += 2.0 * Nout * 27 * Cout * Cout  # res conv2
         f += 2.0 * Nout * Ccat * Cout  # 1x1 shortcut (Ccat != Cout)
         comp[f"decoder{k}"] = f
+    return comp
 
-    N = T**3
+
+def mae_flops_per_grid(cfg: MAEConfig) -> Dict[str, float]:
+    """Per-component forward FLOPs for one input grid (batch element).
+
+    Returns a dict of component -> FLOPs plus:
+      fwd_total:   forward FLOPs/grid
+      train_total: 3 * fwd_total (fwd + bwd model FLOPs)
+    """
+    comp = _trunk_and_decoders(cfg)
+    E = cfg.swin.embed_dim
+    R = cfg.resolution
+    p = cfg.swin.patch_size[0]
+    N = (R // p) ** 3
     if cfg.decoder_type == "subpixel":
         f = 2.0 * N * 27 * E * E * 2  # head res block conv1+conv2
         f += 2.0 * N * 27 * E * (cfg.out_channels * p**3)  # subpixel proj
@@ -79,6 +90,28 @@ def mae_flops_per_grid(cfg: MAEConfig) -> Dict[str, float]:
         f += 2.0 * R**3 * Cd1 * cfg.out_channels  # 1x1 out
         comp["head"] = f
 
+    fwd = sum(comp.values())
+    comp["fwd_total"] = fwd
+    comp["train_total"] = 3.0 * fwd
+    return comp
+
+
+def dense_head_flops_per_grid(cfg: MAEConfig, out_channels: int) -> Dict[str, float]:
+    """Forward FLOPs for one input grid of a dense head (models/heads.py)
+    with `out_channels` outputs a voxel at R^3 (num_classes for semantics,
+    4 for SR before its resize): the trunk and decoders 4/3/2, then at full
+    resolution encoder1 (res block Cin -> E/2 with its 1x1 shortcut),
+    decoder1 (transposed conv k = s = p, E -> E/2, one input voxel per
+    output voxel; skip concat; res block E -> E/2 with its 1x1 shortcut)
+    and the 1x1 head; with fwd_total and train_total as mae_flops_per_grid."""
+    comp = _trunk_and_decoders(cfg)
+    E, R, cin = cfg.swin.embed_dim, cfg.resolution, cfg.input_channels
+    Cd1 = E // 2
+    n = float(R**3)
+    comp["encoder1"] = 2.0 * n * (27 * cin * Cd1 + 27 * Cd1 * Cd1 + cin * Cd1)
+    comp["decoder1"] = 2.0 * n * (E * Cd1 + 27 * 2 * Cd1 * Cd1 + 27 * Cd1 * Cd1
+                                  + 2 * Cd1 * Cd1)
+    comp["head"] = 2.0 * n * Cd1 * out_channels
     fwd = sum(comp.values())
     comp["fwd_total"] = fwd
     comp["train_total"] = 3.0 * fwd

@@ -26,6 +26,14 @@ torch.utils.checkpoint as in the JAX heads, and so does encoder1 (the JAX
 head keeps its activations): at 160^3 the full-resolution blocks hold the
 largest activations of the step.
 
+Spans (tracing.py), each outside its piece's checkpoint with a mark on the
+piece's output, so that a recomputation falls in the piece's `.bwd`:
+nerf_mae.embed, the encoder's stages, nerf_mae.decoder4/3/2,
+nerf_mae.encoder1, nerf_mae.decoder1 and nerf_mae.head (`sem_out`, or SR's
+`voxel_out` and resize). Counters: `dense_head.voxels` (the voxels a head
+scores, B x its output grid) and `dense_head.remat` (pieces run under
+checkpoint).
+
 On a space axis (`spatial`, parallel.spatial.set_spatial) the heads take
 and return this rank's slabs in the even layout: encoder1 and decoder1 run
 at full resolution on slabs, the nearest resize maps this rank's output
@@ -36,12 +44,14 @@ another rank), and every sum of the losses is global.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from nerf_mae_torch import tracing
 from nerf_mae_torch.config import MAEConfig
 from nerf_mae_torch.metrics import CountSum, one_rank
 from nerf_mae_torch.models.mae import embed_tokens, make_patch_partition
@@ -59,9 +69,17 @@ def maybe_remat(cfg: MAEConfig, module, *args):
     """module(*args), under torch.utils.checkpoint in training with cfg.remat
     (recomputed whole on a space axis: its collectives run on every rank)."""
     if cfg.remat and torch.is_grad_enabled():
+        tracing.count("dense_head.remat")
         return remat_call(module, cfg.remat_policy, *args,
                           early_stop=getattr(module, "spatial", None) is None)
     return module(*args)
+
+
+def traced_piece(name: str, cfg: MAEConfig, module, *args):
+    """maybe_remat(cfg, module, *args) inside the span `name`, its output
+    marked for the piece's backward record."""
+    with tracing.span(name):
+        return tracing.mark(maybe_remat(cfg, module, *args), name)
 
 
 class MAETrunkWithDecoder(nn.Module):
@@ -86,11 +104,13 @@ class MAETrunkWithDecoder(nn.Module):
 
     def forward(self, grids: torch.Tensor, deterministic: bool = True,
                 droppath_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        f = self.stages(embed_tokens(self.patch_partition, grids, self.cfg, self.spatial),
-                        deterministic, droppath_generator)
-        d = maybe_remat(self.cfg, self.decoder4, f[3], f[2])
-        d = maybe_remat(self.cfg, self.decoder3, d, f[1])
-        return maybe_remat(self.cfg, self.decoder2, d, f[0])
+        with tracing.span("nerf_mae.embed"):
+            x = tracing.mark(embed_tokens(self.patch_partition, grids, self.cfg, self.spatial),
+                             "nerf_mae.embed")
+        f = self.stages(x, deterministic, droppath_generator)
+        d = traced_piece("nerf_mae.decoder4", self.cfg, self.decoder4, f[3], f[2])
+        d = traced_piece("nerf_mae.decoder3", self.cfg, self.decoder3, d, f[1])
+        return traced_piece("nerf_mae.decoder2", self.cfg, self.decoder2, d, f[0])
 
 
 class _DenseHead(nn.Module):
@@ -114,9 +134,15 @@ class _DenseHead(nn.Module):
         """grids [B, R, R, R, 4] -> the head's float32 output. A training
         forward (deterministic=False) draws the stochastic-depth keep factors
         from `droppath_generator`."""
-        enc1 = maybe_remat(self.cfg, self.encoder1, grids.to(self.cfg.dtype))
+        enc1 = traced_piece("nerf_mae.encoder1", self.cfg, self.encoder1,
+                            grids.to(self.cfg.dtype))
         d = self.base(grids, deterministic, droppath_generator)
-        return self.head(maybe_remat(self.cfg, self.decoder1, d, enc1))
+        d = traced_piece("nerf_mae.decoder1", self.cfg, self.decoder1, d, enc1)
+        with tracing.span("nerf_mae.head"):
+            out = tracing.mark(self.head(d), "nerf_mae.head")
+        if tracing.on():
+            tracing.count("dense_head.voxels", math.prod(out.shape[:4]))
+        return out
 
 
 @functools.lru_cache(maxsize=16)

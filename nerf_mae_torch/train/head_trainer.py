@@ -59,6 +59,13 @@ class _DenseHeadTrainer(Trainer):
     def _loss(self, out: torch.Tensor, batch: Dict[str, torch.Tensor]):
         raise NotImplementedError
 
+    def _traced_loss(self, out: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """_loss inside the span nerf_mae.loss, the loss marked for its
+        backward record."""
+        with tracing.span("nerf_mae.loss"):
+            loss, aux = self._loss(out, batch)
+            return tracing.mark(loss, "nerf_mae.loss"), aux
+
     @traced_step
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         """One optimizer step; returns (state, metrics): 0-d device tensors,
@@ -69,7 +76,7 @@ class _DenseHeadTrainer(Trainer):
             out = model(batch["grids"], False,
                         droppath_generator=self._generator(state.seed, state.step, _DROPPATH,
                                                            batch["grids"].shape[0]))
-            loss, aux = self._loss(out, batch)
+            loss, aux = self._traced_loss(out, batch)
         grad_norm = self._update(state, loss)
         return state, self._global({"loss": loss.detach(), **aux, "grad_norm": grad_norm})
 
@@ -78,7 +85,7 @@ class _DenseHeadTrainer(Trainer):
         model = state.model
         model.eval()
         out = model(batch["grids"], True)
-        loss, aux = self._loss(out, batch)
+        loss, aux = self._traced_loss(out, batch)
         return self._global({"loss": loss, **aux, **self._eval_extra(out)})
 
     def _eval_extra(self, out: torch.Tensor) -> Dict:
