@@ -31,7 +31,9 @@ Phases (any failure raises and the exit code is not 0):
      each backward twice, bitwise equal;
   7. the train main path: `nerf_mae_torch.run_mae_pretrain.main` trains
      swin_b 160^3 at batch 8 for 6 steps on synthetic scenes (22 fused-block
-     forward and 22 backward launches per step, finite losses), `--mode
+     forward and 22 backward launches per step; the fused norms' backward
+     entries 2 a res block and step, stats = apply, 2-4 a res block and
+     step; finite losses), `--mode
      eval` reads the checkpoint back, then `--mode benchmark` times the step
      (step ms, grids/s, MFU, peak memory);
   8. gradients: one batch-2 step through the kernels and through the plain
@@ -53,8 +55,9 @@ Phases (any failure raises and the exit code is not 0):
  12. voxel super-resolution: run_mae_pretrain writes a swin_s 160^3
      checkpoint (batch 8, 2 steps); `nerf_mae_torch.run_voxel_sr.main`
      trains swin_s 160^3 -> 256^3 at batch 8 for 4 steps from it (finite
-     losses, 22 fused-block forward and 22 backward launches per step),
-     `--mode eval` reads its checkpoint back, `--mode benchmark` runs at
+     losses, 22 fused-block forward and 22 backward launches per step, the
+     fused norms' launches checked as in phase 7), `--mode eval` reads its
+     checkpoint back, `--mode benchmark` runs at
      256^3 and 384^3; the graft is verified (every `base` tensor equals the
      MAE checkpoint's); one step's parts on the device timeline with the
      peak memory of each; one step under torch.profiler (device time by
@@ -184,9 +187,20 @@ Phases (any failure raises and the exit code is not 0):
  22. components: `nerf_mae_torch.tools.bench_components` at swin_b 160^3,
      batch 8, 5 reps, in process: every row finite, the fused-block kernels
      launched twice a forward (and their backward twice a forward+backward)
-     on stage pairs 0-2 and not on stage 3, the table printed;
- 23. one JSON line of the four kernels, nvidia-smi's line, and the last line
-     {"ok": true, "device": {...}}.
+     on stage pairs 0-2 and not on stage 3, the res blocks' fused norms on
+     the up blocks and the head only, the table printed;
+ 23. the res block's fused instance norm + LeakyReLU (csrc/res_norm.cu) at
+     semantics' full-resolution tensor (1 and 8 samples of 160^3 x 48) and
+     the MAE decoders' (batch 8: 40^3 x 128, 20^3 x 256, 10^3 x 512), in
+     each mode the step runs: output and input gradients against the plain
+     composition, then each of the four entry points' CUDA-event median
+     beside its byte bound at 3.35 TB/s, and the plain version's forward
+     and forward+backward;
+ 24. one JSON line of the kernels (the four ported ones; the fused norm's
+     four entry points at sem_s160's shape, with their errors against the
+     plain composition, its times, and phase 13's launches), nvidia-smi's
+     line, and the
+     last line {"ok": true, "device": {...}}.
 Every phase header prints the seconds since the start.
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -238,6 +252,7 @@ from nerf_mae_torch.models.fcos import (
     nms_boxes,
 )
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
+from nerf_mae_torch.models.unetr import UnetResBlock3D
 from nerf_mae_torch.models.rcnn import rcnn_loss
 from nerf_mae_torch.models.rpn import (
     NeRFRPN,
@@ -261,7 +276,7 @@ from nerf_mae_torch.ops.fused_block import (
     fused_swin_block_plain,
     row_views,
 )
-from nerf_mae_torch.ops import nms
+from nerf_mae_torch.ops import nms, res_norm
 from nerf_mae_torch.ops.anchors import anchor_padding_mask, anchors_on
 from nerf_mae_torch.ops.boxes import box_iou_aabb
 from nerf_mae_torch.ops.masking import block_mask_3d
@@ -853,15 +868,46 @@ def phase_other_shapes(dev, gen):
 
 def reset_launches():
     for fn in (fused_swin_block, fused_swin_block_bwd, fused_window_attention,
-               fused_window_attention_bwd):
+               fused_window_attention_bwd, *res_norm.KERNELS):
         fn.launches = 0
 
 
 def read_launches():
+    """The four ported kernels' launches and the fused norms' four entry
+    points' (under their function names)."""
     return {"block": fused_swin_block.launches,
             "block_bwd": fused_swin_block_bwd.launches,
             "attention": fused_window_attention.launches,
-            "attention_bwd": fused_window_attention_bwd.launches}
+            "attention_bwd": fused_window_attention_bwd.launches,
+            **{fn.__name__: fn.launches for fn in res_norm.KERNELS}}
+
+
+def res_blocks(kind):
+    """UnetResBlock3D modules of the model that phase 7 (kind "mae") or
+    phases 12-13 ("sr", "semantics") train, counted on the meta device."""
+    if kind == "mae":
+        model = SwinMAE3D(swin_b_cfg(), device="meta")
+    elif kind == "sr":
+        model = heads.VoxelSR3D(swin_s_cfg(), SR_OUT[0], device="meta")
+    else:
+        model = heads.VoxelSemantics3D(swin_s_cfg(), NUM_CLASSES, device="meta")
+    return sum(isinstance(m, UnetResBlock3D) for m in model.modules())
+
+
+def check_res_norm_launches(what, launches, blocks, steps):
+    """The fused norms' launches of `steps` train steps of a model with
+    `blocks` res blocks: each backward entry 2 a block and step; stats and
+    apply equal, 2 a block and step, up to 4 where remat repeats the
+    forward. Returns the four counts."""
+    n = [launches[fn.__name__] for fn in res_norm.KERNELS]
+    stats, apply, reduce, bwd = n
+    lo = 2 * blocks * steps
+    log(f"  {what}: fused norms' launches (stats, apply, bwd_reduce, bwd_apply) {n} over "
+        f"{steps} steps of {blocks} res blocks")
+    if not (reduce == bwd == lo and stats == apply and lo <= stats <= 2 * lo):
+        raise AssertionError(f"{what}: fused norms' launches {n}, expected backward {lo} "
+                             f"each and forward {lo}-{2 * lo} each")
+    return n
 
 
 def phase_train(dev, tmp, smi):
@@ -890,6 +936,7 @@ def phase_train(dev, tmp, smi):
     if launches["block"] != want or launches["block_bwd"] != want:
         raise AssertionError(f"train launches {launches}, expected {want} fused-block "
                              "forward and backward")
+    check_res_norm_launches("MAE train", launches, res_blocks("mae"), TRAIN_STEPS)
     if len(history) != TRAIN_STEPS or not all(
             math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
         raise AssertionError(f"train history not finite: {history}")
@@ -1461,6 +1508,7 @@ def phase_head(kind, dev, tmp, smi, mae_ckpt):
     if (launches["block"], launches["block_bwd"]) != (want, want):
         raise AssertionError(f"{kind} train launches {launches}, expected {want} fused-block "
                              "forward and backward")
+    check_res_norm_launches(f"{kind} train", launches, res_blocks(kind), HEAD_STEPS)
     if len(history) != HEAD_STEPS or not all(
             math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in history):
         raise AssertionError(f"{kind} train history not finite: {history}")
@@ -3588,14 +3636,17 @@ class _SumInstanceNorm3d(torch.autograd.Function):
 class other_float32_algorithms:
     """Within the block, another valid float32 evaluation of the same
     step: the other cuBLAS library for every GEMM, cuDNN's benchmarked
-    convolution algorithms and the instance norms' statistics as sums
-    (other summation orders everywhere)."""
+    convolution algorithms and the res blocks' norms as the plain
+    composition with their statistics as sums in place of the fused
+    kernels (other summation orders everywhere)."""
 
     def __enter__(self):
         from nerf_mae_torch.models import unetr
 
-        self._unetr, self._norm = unetr, unetr._InstanceNorm3d
-        unetr._InstanceNorm3d = _SumInstanceNorm3d
+        self._unetr = unetr
+        self._norms = unetr.norm_act, unetr.norm_add_act, res_norm._InstanceNorm3d
+        unetr.norm_act, unetr.norm_add_act = res_norm.norm_act_plain, res_norm.norm_add_act_plain
+        res_norm._InstanceNorm3d = _SumInstanceNorm3d
         self._conv = torch.backends.cudnn.benchmark
         self._blas = None
         if torch.cuda.is_available():
@@ -3606,7 +3657,7 @@ class other_float32_algorithms:
         return self
 
     def __exit__(self, *exc):
-        self._unetr._InstanceNorm3d = self._norm
+        self._unetr.norm_act, self._unetr.norm_add_act, res_norm._InstanceNorm3d = self._norms
         torch.backends.cudnn.benchmark = self._conv
         if self._blas is not None:
             torch.backends.cuda.preferred_blas_library(self._blas)
@@ -4130,6 +4181,155 @@ def phase_bench(bench, smi):
     return line
 
 
+# Phase 23: the residual block's fused norms (csrc/res_norm.cu). Cases:
+# semantics' full-resolution tensor (one sample and sem_s160's batch of
+# 8) and the swin_b MAE decoders' (batch 8), each in the modes the step
+# runs there: "act" after conv1, "normed" after conv2 with conv3's output
+# normalised beside it, "raw" with the block's input as the residual (the
+# subpixel head's block).
+RES_NORM_CASES = [
+    ((1, 160, 160, 160, 48), "act"), ((1, 160, 160, 160, 48), "normed"),
+    ((8, 160, 160, 160, 48), "act"), ((8, 160, 160, 160, 48), "normed"),
+    ((8, 40, 40, 40, 128), "act"), ((8, 40, 40, 40, 128), "normed"),
+    ((8, 40, 40, 40, 128), "raw"), ((8, 20, 20, 20, 256), "act"),
+    ((8, 20, 20, 20, 256), "normed"), ((8, 10, 10, 10, 512), "act"),
+    ((8, 10, 10, 10, 512), "normed"),
+]
+RES_NORM_REPS = 20
+
+
+def res_norm_bytes(shape, mode, dtype=torch.bfloat16):
+    """Bytes each entry point needs to move, each operand read once and
+    each result written once: stats reads the normalised operands; apply
+    reads them (and a raw residual) and writes the output; bwd_reduce reads
+    the gradient and every operand; bwd_apply reads the same and writes a
+    gradient for each operand."""
+    t = math.prod(shape) * (torch.finfo(dtype).bits // 8)
+    normed, ops = (2, 2) if mode == "normed" else (1, 1 if mode == "act" else 2)
+    return {"stats": normed * t, "apply": (ops + 1) * t, "bwd_reduce": (ops + 1) * t,
+            "bwd_apply": (2 * ops + 1) * t}
+
+
+def res_norm_pre(a, res, mode, eps=1e-5):
+    """The pre-activation in float32 (a bias cancels in its norm)."""
+    def norm(t):
+        var, mean = torch.var_mean(t.float(), dim=(1, 2, 3), keepdim=True, unbiased=False)
+        return (t.float() - mean).mul_(torch.rsqrt(var + eps))
+    pre = norm(a)
+    if mode == "normed":
+        pre += norm(res)
+    elif mode == "raw":
+        pre += res.float()
+    return pre
+
+
+def phase_res_norm(dev, smi):
+    """Each case: the four entry points against the plain composition
+    (norm_act_plain / norm_add_act_plain; output within 4 bf16 ulps of the
+    largest value and relative L2 1e-2, the plain version rounding after
+    the bias add, each norm, the sum and the LeakyReLU where the kernel
+    rounds once; each input gradient within relative L2 1e-2 at the voxels
+    0.05 or more from the LeakyReLU's kink: nearer, the plain version's
+    roundings of the pre-activation can pick the other slope), then the
+    CUDA-event median of each entry point beside its byte bound at 3.35
+    TB/s, and the plain version's forward and forward+backward. Returns
+    {case: {entry: (ms, bound_ms), plain_fwd, plain_fwd_bwd, fused_fwd_bwd,
+    max_abs_fwd (the output's largest distance from the plain version's),
+    max_abs_bwd (the input gradients', at the voxels 0.05 or more from the
+    kink)}}."""
+    out = {}
+    for shape, mode in RES_NORM_CASES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(23)
+        r = lambda: torch.randn(shape, generator=gen, device=dev)
+        c = shape[-1]
+        a = (3.0 + 2.0 * r()).to(torch.bfloat16)
+        bias = torch.randn(c, generator=gen, device=dev)
+        res = None if mode == "act" else r().to(torch.bfloat16)
+        bias_r = torch.randn(c, generator=gen, device=dev) if mode == "normed" else None
+        g = r().to(torch.bfloat16)
+        xs = [a] if mode != "normed" else [a, res]
+        raw = res if mode == "raw" else None
+        leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+                  for t in (a, bias, res, bias_r)]
+        if mode == "act":
+            fused = lambda: res_norm.norm_act(*leaves[:2])
+            plain = lambda: res_norm.norm_act_plain(*leaves[:2])
+        else:
+            fused = lambda: res_norm.norm_add_act(*leaves)
+            plain = lambda: res_norm.norm_add_act_plain(*leaves)
+        wrt = [t for t in leaves if t is not None]
+        got = fused()
+        dgot = torch.autograd.grad(got, wrt, g)
+        want = plain()
+        dwant = torch.autograd.grad(want, wrt, g)
+        name = f"res_norm {mode} {list(shape)}"
+        max_abs, rel, scale = errors(got, want)
+        log(f"  {name}: max_abs {max_abs:.3e} (tol {4 * bf16_ulp(scale):.3e}) rel_l2 {rel:.3e} "
+            "(tol 1e-2)")
+        if not (max_abs <= 4 * bf16_ulp(scale) and rel <= 1e-2):
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        away = res_norm_pre(a, res, mode).abs_() > 0.05
+        row = {"max_abs_fwd": max_abs, "max_abs_bwd": 0.0}
+        for i, (x, w) in enumerate(zip(dgot, dwant)):
+            if w.dim() > 1:
+                w = w.float().mul_(away)
+                x = x.float().mul_(away)
+                rel = ((x - w).norm() / w.norm()).item()
+                row["max_abs_bwd"] = max(row["max_abs_bwd"], (x - w).abs_().max().item())
+                log(f"  {name} input gradient {i}: rel_l2 {rel:.3e} (tol 1e-2) at the "
+                    f"{away.float().mean().item():.4f} of the voxels 0.05 or more from the kink")
+                if not rel <= 1e-2:
+                    raise AssertionError(f"{name}: gradient {i} disagrees with the plain version")
+        del got, dgot, want, dwant, away, w, x
+        stats = res_norm.res_norm_stats(xs)
+        sums = res_norm.res_norm_bwd_reduce(g, xs, stats, raw)
+        calls = {"stats": lambda: res_norm.res_norm_stats(xs),
+                 "apply": lambda: res_norm.res_norm_apply(xs, stats, raw),
+                 "bwd_reduce": lambda: res_norm.res_norm_bwd_reduce(g, xs, stats, raw),
+                 "bwd_apply": lambda: res_norm.res_norm_bwd_apply(g, xs, stats, sums, raw)}
+        for entry, nbytes in res_norm_bytes(shape, mode).items():
+            ms = time_ms(calls[entry], reps=RES_NORM_REPS)
+            row[entry] = (ms, nbytes / PEAK_BYTES * 1e3)
+        with torch.no_grad():
+            row["plain_fwd"] = time_ms(plain, reps=RES_NORM_REPS // 2)
+        row["plain_fwd_bwd"] = time_ms(lambda: torch.autograd.grad(plain(), wrt, g),
+                                       reps=RES_NORM_REPS // 2)
+        row["fused_fwd_bwd"] = time_ms(lambda: torch.autograd.grad(fused(), wrt, g),
+                                       reps=RES_NORM_REPS // 2)
+        kern = sum(row[e][0] for e in calls)
+        bnd = sum(row[e][1] for e in calls)
+        log(f"  {name}: " + ", ".join(f"{e} {row[e][0]:.3f} ms (bound {row[e][1]:.3f}, "
+                                       f"{100 * row[e][1] / row[e][0]:.1f}%)" for e in calls)
+            + f"; four {kern:.3f} ms (bound {bnd:.3f}, {100 * bnd / kern:.1f}%); fused "
+            f"fwd+bwd {row['fused_fwd_bwd']:.3f} ms; plain fwd {row['plain_fwd']:.3f} ms, "
+            f"fwd+bwd {row['plain_fwd_bwd']:.3f} ms | {smi}")
+        out[name] = row
+        del a, res, g, xs, raw, leaves, stats, sums, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def res_norm_entries(row, launches):
+    """The kernels line's entries of the fused norms' four entry points from
+    phase 23's `row` of one case and a train run's `launches`: the forward
+    entries beside the plain composition's forward, the backward entries
+    beside its backward (forward+backward less forward)."""
+    entries = []
+    for fn in res_norm.KERNELS:
+        entry = fn.__name__[len("res_norm_"):]
+        bwd = entry.startswith("bwd")
+        ms, bound_ms = row[entry]
+        entries.append({
+            "name": fn.__name__, "route": "cuda", "source": "nerf_mae_torch/csrc/res_norm.cu",
+            "replaces": None, "launches": launches[fn.__name__],
+            "max_abs_err": row["max_abs_bwd" if bwd else "max_abs_fwd"], "ms": ms,
+            "plain_ms": row["plain_fwd_bwd"] - row["plain_fwd"] if bwd else row["plain_fwd"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        })
+    return entries
+
+
 # Components (phase 22): tools.bench_components at the step's shapes
 COMPONENT_REPS = 5
 
@@ -4139,7 +4339,9 @@ def phase_components(tmp):
     COMPONENT_REPS reps: every row finite; the fused-block kernels launched
     on stage pairs 0-2 (two forward a forward call, two forward and two
     backward a forward+backward call), none on stage 3, and the launch
-    counter holding exactly those launches."""
+    counter holding exactly those launches; the up blocks' and the head's
+    res block through the fused norms (two stats and two apply launches a
+    forward, two of each backward entry a backward), no other row."""
     t0 = time.perf_counter()
     reset_launches()
     out = bench_components.main([
@@ -4147,7 +4349,7 @@ def phase_components(tmp):
         "--reps", str(COMPONENT_REPS), "--out", os.path.join(tmp, "components.json")])
     launches = read_launches()
     calls = COMPONENT_REPS + 2
-    want_total = {"block": 0, "block_bwd": 0, "attention": 0, "attention_bwd": 0}
+    want_total = {k: 0 for k in read_launches()}
     failed = []
     log(f"  components (ms, {out['meta']['device']}; launches a call, forward / "
         "forward+backward):")
@@ -4157,7 +4359,15 @@ def phase_components(tmp):
         if not (math.isfinite(row["fwd"]) and math.isfinite(row["fwd_bwd"])):
             failed.append(f"{name} not finite")
         m = re.fullmatch(r"stage(\d)_pair_.*", name)
-        if m:
+        if re.fullmatch(r"decoder\d_.*|subpixel_head_patched", name):
+            norms = {"res_norm_stats": 2.0, "res_norm_apply": 2.0}  # one res block's two
+            want = {"fwd": norms, "fwd_bwd": {**norms, "res_norm_bwd_reduce": 2.0,
+                                              "res_norm_bwd_apply": 2.0}}
+            if row["launches"] != want:
+                failed.append(f"{name} launches {row['launches']}, expected {want}")
+            for fn in res_norm.KERNELS:  # 2 a forward and a forward+backward call
+                want_total[fn.__name__] += (4 if fn.__name__ in norms else 2) * calls
+        elif m:
             fused = int(m.group(1)) < 3
             want = ({"fwd": {"fused_swin_block": 2.0},
                      "fwd_bwd": {"fused_swin_block": 2.0, "fused_swin_block_bwd": 2.0}}
@@ -4259,7 +4469,7 @@ def main() -> int:
         phase_head("sr", dev, tmp, smi, mae_ckpt)
         log(f"[13] voxel semantics: swin_s {RES}^3, {NUM_CLASSES} classes, batch "
             f"{HEAD_BATCH}, {HEAD_STEPS} steps from the same MAE checkpoint")
-        phase_head("semantics", dev, tmp, smi, mae_ckpt)
+        sem_launches = phase_head("semantics", dev, tmp, smi, mae_ckpt)[0]
         log(f"[14] FCOS detection: OBB, swin_s {RES}^3, batch {HEAD_BATCH}, {FCOS_STEPS} steps "
             "from the same MAE checkpoint (launch/train_fcos_pretrained.sh's flags), eval, "
             "benchmarks (OBB and AABB)")
@@ -4313,11 +4523,19 @@ def main() -> int:
             f"{TRAIN_BATCH}, {COMPONENT_REPS} reps, launches per row")
         phase_components(tmp)
 
-    log(f"[23] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
+    log("[23] the res block's fused norms (csrc/res_norm.cu) vs the plain composition at "
+        "semantics' full resolution and the MAE decoders' shapes, timed beside their bounds")
+    norm_rows = phase_res_norm(dev, smi)
+
+    log(f"[24] total {time.perf_counter() - t0:.1f} s; request ms {request_ms}; "
         "kernels line: forward kernels' ms / plain_ms / bound_ms per batch-1 "
         "forward (phase 3), backward kernels' per batch-8 train step (phase 6), "
         "each a sum of measured medians over the 22 launches; launches from the "
-        "train main path (phase 7) and the erf train step (phase 9)")
+        "train main path (phase 7) and the erf train step (phase 9); the fused "
+        "norms' entry points at sem_s160's [8, 160^3, 48] (phase 23: conv2's norm "
+        "beside conv3's), plain_ms the plain composition's forward (stats, apply) "
+        "or backward (the backward entries), the launches of phase 13's "
+        "semantics train run")
     entries = []
     for kind, name, source, replaces, count, s in (
         ("block", "fused_swin_block", "nerf_mae_torch/csrc/fused_block.cu",
@@ -4341,6 +4559,8 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
         })
+    entries += res_norm_entries(norm_rows["res_norm normed [8, 160, 160, 160, 48]"],
+                                sem_launches)
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

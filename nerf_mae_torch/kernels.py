@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 )
 # one library per kernel source
 SOURCES = ("fused_block", "fused_attention", "fused_block_bwd",
-           "fused_attention_bwd")
+           "fused_attention_bwd", "res_norm")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_mae_torch.ops.res_norm import _InstanceNorm3d, lrelu, norm_act, norm_add_act
 from nerf_mae_torch.parallel import spatial as sp
 
 
@@ -45,13 +46,16 @@ class Conv3d(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, k, device=device))
         self.bias = nn.Parameter(torch.empty(out_ch, device=device))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, stride: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, stride: int = 1,
+                add_bias: bool = True) -> torch.Tensor:
         """'SAME' cross-correlation at the compute dtype, NDHWC in and out;
-        the bias is added in the compute dtype, as flax nn.Conv does. A
+        the bias is added in the compute dtype, as flax nn.Conv does, unless
+        add_bias is False (the res block hands it to its fused norm). A
         stride pads as flax's SAME does: ceil(n / stride) outputs, the odd
         pad voxel after. On a space axis (stride 1 only) the slab takes a
         halo of k // 2 planes and only axes 2-3 are padded."""
         k = self.weight.shape[-1]
+        w = self.weight.to(dtype)
         if self.spatial is not None:
             if stride != 1:
                 raise NotImplementedError("a strided convolution is not sharded over space")
@@ -59,19 +63,17 @@ class Conv3d(nn.Module):
                 x = sp.halo(x, k // 2, self.spatial)
             if x.shape[1] == 0:  # an empty slab: the halo left it empty
                 return empty_result(x, self.weight.shape[0], dtype, self.weight, self.bias)
-            y = F.conv3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype),
-                         padding=(0, k // 2, k // 2))
-            return _to_ndhwc(y) + self.bias.to(dtype)
-        if stride == 1:
-            y = F.conv3d(_to_ncdhw(x.to(dtype)), self.weight.to(dtype), padding=k // 2)
-            return _to_ndhwc(y) + self.bias.to(dtype)
-        pads = []
-        for n in reversed(x.shape[1:4]):  # F.pad lists the last dim first
-            total = max(0, (-(-n // stride) - 1) * stride + k - n)
-            pads += [total // 2, total - total // 2]
-        y = F.conv3d(F.pad(_to_ncdhw(x.to(dtype)), pads), self.weight.to(dtype),
-                     stride=stride)
-        return _to_ndhwc(y) + self.bias.to(dtype)
+            y = F.conv3d(_to_ncdhw(x.to(dtype)), w, padding=(0, k // 2, k // 2))
+        elif stride == 1:
+            y = F.conv3d(_to_ncdhw(x.to(dtype)), w, padding=k // 2)
+        else:
+            pads = []
+            for n in reversed(x.shape[1:4]):  # F.pad lists the last dim first
+                total = max(0, (-(-n // stride) - 1) * stride + k - n)
+                pads += [total // 2, total - total // 2]
+            y = F.conv3d(F.pad(_to_ncdhw(x.to(dtype)), pads), w, stride=stride)
+        y = _to_ndhwc(y)
+        return y + self.bias.to(dtype) if add_bias else y
 
 
 class ConvTranspose3d(nn.Module):
@@ -97,49 +99,6 @@ def empty_result(x, out_ch, dtype, *params, scale: int = 1):
     channels, axes 2-3 scaled), its graph joined to x and the parameters."""
     b, _, h, w, _ = x.shape
     return sp.empty_result((b, 0, h * scale, w * scale, out_ch), x, *params).to(dtype)
-
-
-class _InstanceNorm3d(torch.autograd.Function):
-    """Instance norm that keeps for its backward only its input and the
-    per-(sample, channel) statistics, and makes its float32 temporaries a
-    few samples at a time (at most CHUNK elements, at least one sample): at
-    a full-resolution grid (160^3, 48 channels, batch 8: 3.1 GB in bf16)
-    autograd's own graph would keep two float32 copies of the input and
-    make three more at once; the token-grid decoders take the whole batch
-    in one chunk."""
-
-    CHUNK = 1 << 28
-
-    @staticmethod
-    def _chunks(x):
-        n = max(1, _InstanceNorm3d.CHUNK // max(x[0].numel(), 1))
-        return [slice(s, s + n) for s in range(0, x.shape[0], n)]
-
-    @staticmethod
-    def forward(ctx, x, eps):
-        out = torch.empty_like(x)
-        stats = torch.empty((2, x.shape[0], 1, 1, 1, x.shape[-1]),
-                            dtype=torch.float32, device=x.device)
-        for b in _InstanceNorm3d._chunks(x):
-            x32 = x[b].float()
-            var, mean = torch.var_mean(x32, dim=(1, 2, 3), keepdim=True, unbiased=False)
-            stats[0, b], stats[1, b] = mean, torch.rsqrt(var + eps)
-            out[b] = (x32 - mean) * stats[1, b]
-        ctx.save_for_backward(x, stats)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, stats = ctx.saved_tensors
-        dx = torch.empty_like(x)
-        for b in _InstanceNorm3d._chunks(x):
-            rstd = stats[1, b]
-            xhat = (x[b].float() - stats[0, b]) * rstd
-            g32 = g[b].float()
-            gm = g32.mean(dim=(1, 2, 3), keepdim=True)
-            gxm = (g32 * xhat).mean(dim=(1, 2, 3), keepdim=True)
-            dx[b] = rstd * (g32 - gm - xhat * gxm)
-        return dx, None
 
 
 class _SlabInstanceNorm3d(torch.autograd.Function):
@@ -209,10 +168,6 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.reshape(x.shape)
 
 
-def _lrelu(x):
-    return F.leaky_relu(x, negative_slope=0.01)
-
-
 class UnetResBlock3D(nn.Module):
     """conv3 -> IN -> lrelu -> conv3 -> IN (+ 1x1 shortcut) -> lrelu.
 
@@ -231,13 +186,22 @@ class UnetResBlock3D(nn.Module):
                       if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        norm = lambda t: instance_norm_3d(t, mesh=self.spatial)
-        h = _lrelu(norm(self.conv1(x, self.dtype)))
-        h = norm(self.conv2(h, self.dtype))
-        residual = x
+        if self.spatial is not None:
+            norm = lambda t: instance_norm_3d(t, mesh=self.spatial)
+            h = lrelu(norm(self.conv1(x, self.dtype)))
+            h = norm(self.conv2(h, self.dtype))
+            residual = x
+            if self.conv3 is not None:
+                residual = norm(self.conv3(x, self.dtype))
+            return lrelu(h + residual)
+        # the biases go to the fused norms (ops/res_norm.py), where they cancel
+        # in the normalised values and get their gradients
+        h = norm_act(self.conv1(x, self.dtype, add_bias=False), self.conv1.bias)
+        h = self.conv2(h, self.dtype, add_bias=False)
         if self.conv3 is not None:
-            residual = norm(self.conv3(x, self.dtype))
-        return _lrelu(h + residual)
+            return norm_add_act(h, self.conv2.bias, self.conv3(x, self.dtype, add_bias=False),
+                                self.conv3.bias)
+        return norm_add_act(h, self.conv2.bias, x.to(h.dtype))
 
 
 class UnetrUpBlock3D(nn.Module):

@@ -17,7 +17,9 @@ and the input (the parameters only for the embed rows: the real step never
 needs the grids' gradient). Each time is the mean of --reps calls after two
 warm calls, with a synchronize at each end. SwinBlock3D dispatches as in
 the step: the fused-block kernels on stages 0-2 (C <= 512), the plain path
-on stage 3; each row records the kernel launches a call makes.
+on stage 3; the res blocks of the up blocks and the head through the fused
+norm kernels (ops/res_norm.py); each row records the kernel launches a
+call makes.
 
 Isolated numbers exclude what the step shares between pieces, so they rank
 targets; they do not sum to the step (run_mae_pretrain --mode benchmark
@@ -53,10 +55,11 @@ from nerf_mae_torch.ops.fused_attention import (
     fused_window_attention_bwd,
 )
 from nerf_mae_torch.ops.fused_block import fused_swin_block, fused_swin_block_bwd
+from nerf_mae_torch.ops import res_norm
 from nerf_mae_torch.run_mae_pretrain import device_slug
 
 KERNELS = (fused_swin_block, fused_swin_block_bwd, fused_window_attention,
-           fused_window_attention_bwd)
+           fused_window_attention_bwd, *res_norm.KERNELS)
 
 
 def device_label(device: torch.device) -> str:

@@ -259,12 +259,12 @@ def count(name: str, n: int = 1) -> None:
 def counters(mesh=None) -> Dict[str, int]:
     """The counts, the hand-written kernels' launches, the fused block's
     kept rows and, given a mesh, its collectives and gradient bytes."""
-    from nerf_mae_torch.ops import fused_attention, fused_block
+    from nerf_mae_torch.ops import fused_attention, fused_block, res_norm
     with _lock:
         out = dict(_counts)
     for fn in (fused_block.fused_swin_block, fused_block.fused_swin_block_bwd,
                fused_attention.fused_window_attention,
-               fused_attention.fused_window_attention_bwd):
+               fused_attention.fused_window_attention_bwd, *res_norm.KERNELS):
         out[f"{fn.__name__}.launches"] = fn.launches
     out["fused_swin_block.kept"] = fused_block.fused_swin_block.kept
     out["fused_swin_block.kept_bytes"] = fused_block.fused_swin_block.kept_bytes

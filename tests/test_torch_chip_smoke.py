@@ -332,3 +332,48 @@ def test_phase21_runs_the_bench_at_its_defaults_and_checks_the_line(monkeypatch)
             chip_smoke.check_bench_line(line, rc)
     text = '# timing batch=8 reps=5\n{"value": 1.0}\nlog line\n{"value": 2.0}\n'
     assert chip_smoke.json_lines(text) == [{"value": 1.0}, {"value": 2.0}]
+
+
+@pytest.mark.parametrize("mode,reads,writes", [("act", (1, 1, 2, 2), (0, 1, 0, 1)),
+                                               ("normed", (2, 2, 3, 3), (0, 1, 0, 2)),
+                                               ("raw", (1, 2, 3, 3), (0, 1, 0, 2))])
+def test_res_norm_bytes(mode, reads, writes):
+    """Phase 23's byte bound: each entry point's operands read once and its
+    results written once (stats, apply, bwd_reduce, bwd_apply), in bf16."""
+    t = 8 * 160 ** 3 * 48 * 2
+    got = chip_smoke.res_norm_bytes((8, 160, 160, 160, 48), mode)
+    assert list(got) == ["stats", "apply", "bwd_reduce", "bwd_apply"]
+    assert list(got.values()) == [(r + w) * t for r, w in zip(reads, writes)]
+
+
+def test_res_blocks_and_their_launch_check():
+    """The res blocks phase 7 and phases 12-13 count (decoders 4/3/2 and
+    the subpixel head's; the dense heads' decoders, encoder1 and decoder1),
+    and the check of a train run's fused-norm launches: the backward's
+    exactly 2 a block and step, stats = apply within 2-4 a block and step."""
+    assert chip_smoke.res_blocks("mae") == 4
+    assert chip_smoke.res_blocks("semantics") == chip_smoke.res_blocks("sr") == 5
+    names = [fn.__name__ for fn in chip_smoke.res_norm.KERNELS]
+    ok = dict(zip(names, (40, 40, 20, 20)))
+    assert chip_smoke.check_res_norm_launches("t", ok, 5, 2) == [40, 40, 20, 20]
+    for bad in ((20, 20, 18, 20), (40, 38, 20, 20), (18, 18, 20, 20), (42, 42, 20, 20)):
+        with pytest.raises(AssertionError, match="fused norms"):
+            chip_smoke.check_res_norm_launches("t", dict(zip(names, bad)), 5, 2)
+
+
+def test_res_norm_entries_fill_the_kernels_line():
+    """Phase 24's entries of the fused norms: phase 23's times and errors,
+    the forward entries beside the plain forward, the backward entries
+    beside the plain backward, the train run's launches."""
+    row = {"stats": (2.0, 1.5), "apply": (3.0, 2.5), "bwd_reduce": (3.5, 2.5),
+           "bwd_apply": (7.0, 4.5), "plain_fwd": 40.0, "plain_fwd_bwd": 170.0,
+           "fused_fwd_bwd": 16.0, "max_abs_fwd": 0.03, "max_abs_bwd": 0.002}
+    launches = {fn.__name__: i + 10 for i, fn in enumerate(chip_smoke.res_norm.KERNELS)}
+    got = chip_smoke.res_norm_entries(row, launches)
+    assert [e["name"] for e in got] == list(launches)
+    assert [e["launches"] for e in got] == [10, 11, 12, 13]
+    assert [(e["ms"], e["bound_ms"]) for e in got] == [(2.0, 1.5), (3.0, 2.5), (3.5, 2.5),
+                                                      (7.0, 4.5)]
+    assert [e["plain_ms"] for e in got] == [40.0, 40.0, 130.0, 130.0]
+    assert [e["max_abs_err"] for e in got] == [0.03, 0.03, 0.002, 0.002]
+    assert all(e["bound_by"] == "bytes" and e["route"] == "cuda" for e in got)

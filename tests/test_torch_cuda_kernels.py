@@ -21,11 +21,13 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nerf_mae_torch import kernels
 
-from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, SwinConfig
+from nerf_mae_torch.config import SWIN_PRESETS, MAEConfig, SwinConfig, TrainConfig
 from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
+from nerf_mae_torch.models.unetr import UnetResBlock3D
 from nerf_mae_torch.ops.fused_attention import (
     fused_window_attention,
     fused_window_attention_bwd,
@@ -40,6 +42,9 @@ from nerf_mae_torch.ops.fused_block import (
     fused_swin_block_plain,
     row_views,
 )
+from nerf_mae_torch.ops import res_norm
+from nerf_mae_torch.train.head_trainer import VoxelSemanticsTrainer
+from nerf_mae_torch.train.trainer import MAETrainer
 
 pytestmark = pytest.mark.cuda
 WINDOW = (4, 4, 4)
@@ -379,3 +384,177 @@ def test_gemm_core_matches_matmul(dev, form, m, n, k):
                   "gemm_core_for_tests")
     torch.cuda.synchronize()
     assert ((out - want).norm() / want.norm()).item() <= max(1e-5, 4e-7 * math.sqrt(k))
+
+
+# The residual block's fused instance norm + LeakyReLU (csrc/res_norm.cu):
+# semantics' full-resolution tensor (one sample of sem_s160's eight), the MAE
+# decoders' (batch 8), an odd grid. The plain version rounds to bf16 after
+# the bias add (~2e-3 RMS in normalised units), each norm, the sum and the
+# LeakyReLU (~1e-3 each) where the kernel rounds once. Tolerances: forward,
+# 4 bf16 ulps of the largest output and relative L2 1e-2 against the plain
+# version, and never further from a float64 evaluation than the plain
+# version. Backward: relative L2 1e-2 against the float64 evaluation (one
+# rounding to bf16), and 1e-2 against the plain version at the voxels more
+# than 0.05 from the LeakyReLU's kink (~97% of them): within its rounding
+# of the pre-activation the plain version can take the other slope, a 100x
+# change of that voxel's gradient. A bias's gradient is the
+# sum of its operand's gradient as the kernel wrote it: within float32
+# summation order (1e-5 of the sum of magnitudes) of that sum, and, as the
+# norm makes it zero but for rounding, under 1e-2 of the sum of magnitudes.
+RES_NORM_SHAPES = [(1, 160, 160, 160, 48), (8, 40, 40, 40, 128), (8, 20, 20, 20, 256),
+                   (8, 10, 10, 10, 512), (2, 9, 7, 5, 48),
+                   # a small preset's res blocks (swin_nano: 6 and 12 channels),
+                   # one element a load
+                   (2, 32, 32, 32, 6), (2, 17, 9, 13, 12)]
+
+
+def _res_norm_inputs(shape, residual, dtype, dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    c = shape[-1]
+    a = (3.0 + 2.0 * r(*shape)).to(dtype)  # an offset mean, as a conv's output has
+    bias = r(c)
+    res = bias_r = None
+    if residual == "normed":
+        res, bias_r = (-1.0 + 0.5 * r(*shape)).to(dtype), r(c)
+    elif residual == "raw":
+        res = r(*shape).to(dtype)
+    return a, bias, res, bias_r, r(*shape).to(dtype)
+
+
+def _res_norm_run(fns, a, bias, res, bias_r, g):
+    """Output and gradients of (a, bias, res, bias_r) of norm_act or
+    norm_add_act (fns: the two), each input a fresh leaf."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in (a, bias, res, bias_r)]
+    out = (fns[0](*leaves[:2]) if res is None else fns[1](*leaves))
+    out.backward(g)
+    return out.detach(), [None if t is None else t.grad for t in leaves]
+
+
+def _norm64(t):
+    mean = t.mean(dim=(1, 2, 3), keepdim=True)
+    return (t - mean) / torch.sqrt(((t - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True) + 1e-5)
+
+
+def _res_norm_exact(a, bias, res, bias_r, g):
+    """(pre-activation, output, gradients of a and res) in float64."""
+    a64 = a.double().requires_grad_(True)
+    pre = _norm64(a64 + bias.double())
+    r64 = None
+    if res is not None:
+        r64 = res.double().requires_grad_(True)
+        pre = pre + (_norm64(r64 + bias_r.double()) if bias_r is not None else r64)
+    out = F.leaky_relu(pre, 0.01)
+    grads = torch.autograd.grad(out, [t for t in (a64, r64) if t is not None], g.double())
+    return pre.detach(), out.detach(), list(grads) + [None] * (2 - len(grads))
+
+
+def _rel(t, want, mask=None):
+    """Relative L2 distance of t from want (float64), over mask."""
+    d = t.double() - want
+    if mask is not None:
+        d, want = d[mask], want[mask]
+    return (d.norm() / want.norm()).item()
+
+
+def _res_norm_counts():
+    return [k.launches for k in res_norm.KERNELS]
+
+
+@pytest.mark.parametrize("residual", [None, "normed", "raw"])
+@pytest.mark.parametrize("shape", RES_NORM_SHAPES)
+def test_res_norm_kernels_match_plain(dev, shape, residual):
+    bf = torch.bfloat16
+    a, bias, res, bias_r, g = _res_norm_inputs(shape, residual, bf, dev, 7)
+    before = _res_norm_counts()
+    got, dgot = _res_norm_run((res_norm.norm_act, res_norm.norm_add_act), a, bias, res, bias_r, g)
+    torch.cuda.synchronize()
+    assert [n - b for n, b in zip(_res_norm_counts(), before)] == [1, 1, 1, 1]
+    want, dwant = _res_norm_run((res_norm.norm_act_plain, res_norm.norm_add_act_plain),
+                                a, bias, res, bias_r, g)
+    assert got.dtype == bf and got.is_contiguous()
+    ulp = 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= 4 * ulp
+    pre, exact, dexact = _res_norm_exact(a, bias, res, bias_r, g)
+    assert _rel(got, want.double()) <= 1e-2
+    assert _rel(got, exact) <= _rel(want, exact)
+    away = pre.abs() > 0.05
+    for i, d64 in ((0, dexact[0]), (2, dexact[1])):  # a, and the residual
+        if dwant[i] is not None:
+            assert _rel(dgot[i], d64) <= 1e-2
+            assert _rel(dgot[i], dwant[i].double(), away) <= 1e-2
+    del pre, exact, dexact, away
+    for i, op in ((1, 0), (3, 2)):  # each bias against its operand's gradient
+        if dgot[i] is None:
+            continue
+        assert dgot[i].dtype == torch.float32
+        dx = dgot[op].float()
+        mag = dx.abs().sum(dim=(0, 1, 2, 3))
+        assert ((dgot[i] - dx.sum(dim=(0, 1, 2, 3))).abs() <= 1e-5 * mag).all()
+        assert (dgot[i].abs() <= 1e-2 * mag).all() and (dwant[i].abs() <= 1e-2 * mag).all()
+
+
+@pytest.mark.parametrize("residual", [None, "normed", "raw"])
+@pytest.mark.parametrize("shape", [(2, 9, 7, 5, 48), (2, 20, 20, 20, 64), (2, 9, 7, 5, 6),
+                                   (2, 20, 20, 20, 12)])
+def test_res_norm_kernels_float32(dev, shape, residual):
+    """float32: kernel and plain version differ by summation order only
+    (relative L2 1e-5 forward; 1e-4 backward, whose mean subtractions
+    cancel, at the voxels more than 1e-4 from the LeakyReLU's kink, where
+    the two pre-activations, ~1e-6 apart, cannot take different slopes)."""
+    args = _res_norm_inputs(shape, residual, torch.float32, dev, 8)
+    got, dgot = _res_norm_run((res_norm.norm_act, res_norm.norm_add_act), *args)
+    want, dwant = _res_norm_run((res_norm.norm_act_plain, res_norm.norm_add_act_plain), *args)
+    _close(got, want, torch.float32)
+    away = _res_norm_exact(*args)[0].abs() > 1e-4
+    for x, w in zip(dgot, dwant):
+        if w is not None and w.dim() > 1:
+            assert _rel(x, w.double(), away) <= 1e-4
+
+
+def test_res_norm_backward_is_bitwise_repeatable_and_reads_a_channel_slice(dev):
+    """No atomics: the same gradients bit for bit every run; a gradient that
+    is a channel slice of a wider tensor (a concatenation's) is read in
+    place and gives the bits of its contiguous copy."""
+    a, bias, res, bias_r, g = _res_norm_inputs((8, 40, 40, 40, 128), "normed", torch.bfloat16,
+                                               dev, 9)
+    wide = torch.cat([g, g], dim=-1)[..., 128:]
+    assert not wide.is_contiguous() and res_norm._grad_stride(wide, a) == 256
+    runs = [_res_norm_run((res_norm.norm_act, res_norm.norm_add_act), a, bias, res, bias_r, gg)
+            for gg in (g, g, wide)]
+    for out, grads in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        assert all(torch.equal(x, y) for x, y in zip(grads, runs[0][1]))
+
+
+@pytest.mark.parametrize("kind,preset,res", [("semantics", "swin_s", 160), ("mae", "swin_b", 160),
+                                             ("semantics", "swin_nano", 32),
+                                             ("mae", "swin_nano", 32)])
+def test_training_steps_launch_the_res_norm_kernels(dev, kind, preset, res):
+    """One train step of the semantics head (swin_s, 160^3, batch 2: encoder1
+    and decoder1 at full resolution) and of the MAE (swin_b, 160^3, batch 2),
+    and both at swin_nano (res blocks of 6 to 96 channels): every residual
+    block's two norms go through the kernels, twice where remat recomputes
+    them, and each backward once; the loss is finite."""
+    cfg = MAEConfig(swin=SWIN_PRESETS[preset], resolution=res)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    grids = torch.rand((2, res, res, res, 4), generator=gen, device=dev)
+    if kind == "semantics":
+        trainer = VoxelSemanticsTrainer(cfg, TrainConfig(), 10, dev, num_classes=19)
+        batch = {"grids": grids, "semantics": torch.randint(0, 19, (2, res, res, res),
+                                                            generator=gen, device=dev)}
+    else:
+        trainer = MAETrainer(cfg, TrainConfig(), 10, dev)
+        batch = {"grids": grids, "sizes": torch.full((2, 3), res, device=dev)}
+    state = trainer.init(0)
+    blocks = sum(isinstance(m, UnetResBlock3D) for m in state.model.modules())
+    before = _res_norm_counts()
+    _, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    stats, apply, reduce, bwd = [n - b for n, b in zip(_res_norm_counts(), before)]
+    assert blocks >= 4 and reduce == bwd == 2 * blocks
+    assert stats == apply and 2 * blocks <= stats <= 4 * blocks
+    assert math.isfinite(float(metrics["loss"]))
