@@ -251,7 +251,7 @@ from nerf_mae_torch.models.fcos import (
     fcos_select,
     nms_boxes,
 )
-from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss
+from nerf_mae_torch.models.mae import SwinMAE3D, init_weights, mae_loss, maybe_remat
 from nerf_mae_torch.models.unetr import UnetResBlock3D
 from nerf_mae_torch.models.rcnn import rcnn_loss
 from nerf_mae_torch.models.rpn import (
@@ -1345,11 +1345,11 @@ def head_step_breakdown(kind, trainer, state, batch):
     for rep in range(4):
         start()
         mark(0)
-        enc1 = heads.maybe_remat(cfg, model.encoder1, batch["grids"].to(cfg.dtype))
+        enc1 = maybe_remat(model, cfg.remat, model.encoder1, batch["grids"].to(cfg.dtype))
         mark(1)
         d = model.base(batch["grids"], False, gen)
         mark(2)
-        d = heads.maybe_remat(cfg, model.decoder1, d, enc1)
+        d = maybe_remat(model, cfg.remat, model.decoder1, d, enc1)
         mark(3)
         out = model.head(d)
         mark(4)
@@ -3605,48 +3605,38 @@ SP_TIMEOUT_S = 600
 
 
 def plain_cfg(cfg):
-    """cfg with the plain attention (the one-process reference of phase 19)."""
+    """cfg with the plain composition in every layer (kernels.wanted), the
+    one-process reference of phase 19."""
     return dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, attention_impl="plain"))
 
 
-class _SumInstanceNorm3d(torch.autograd.Function):
-    """The instance norm with its statistics as sums divided by the count
-    (two passes, the slabs' formula) in place of torch.var_mean: another
-    valid float32 evaluation of it."""
+class _SumStatistics(torch.overrides.TorchFunctionMode):
+    """torch.var_mean (the plain instance norm's statistics) as sums divided
+    by the count, two passes (the slabs' formula): another valid float32
+    evaluation of it."""
 
-    @staticmethod
-    def forward(ctx, x, eps):
-        n = x[0, ..., 0].numel()
-        x32 = x.float()
-        mean = x32.sum(dim=(1, 2, 3), keepdim=True) / n
-        rstd = torch.rsqrt(((x32 - mean) ** 2).sum(dim=(1, 2, 3), keepdim=True) / n + eps)
-        ctx.save_for_backward(x, mean, rstd)
-        return ((x32 - mean) * rstd).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, mean, rstd = ctx.saved_tensors
-        n = x[0, ..., 0].numel()
-        xhat, g32 = (x.float() - mean) * rstd, g.float()
-        gm = g32.sum(dim=(1, 2, 3), keepdim=True) / n
-        gxm = (g32 * xhat).sum(dim=(1, 2, 3), keepdim=True) / n
-        return (rstd * (g32 - gm - xhat * gxm)).to(x.dtype), None
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not torch.var_mean:
+            return func(*args, **kwargs)
+        x, dim = args[0], kwargs["dim"]
+        if kwargs.get("unbiased", True) or not kwargs.get("keepdim", False):
+            raise NotImplementedError(f"var_mean{kwargs}: only the instance norm's call")
+        n = math.prod(x.shape[d] for d in dim)
+        mean = x.sum(dim=dim, keepdim=True) / n
+        return ((x - mean) ** 2).sum(dim=dim, keepdim=True) / n, mean
 
 
 class other_float32_algorithms:
     """Within the block, another valid float32 evaluation of the same
     step: the other cuBLAS library for every GEMM, cuDNN's benchmarked
-    convolution algorithms and the res blocks' norms as the plain
-    composition with their statistics as sums in place of the fused
-    kernels (other summation orders everywhere)."""
+    convolution algorithms and the plain instance norms' statistics as
+    sums (other summation orders everywhere). Models under attention_impl
+    "plain" run the plain norms (kernels.wanted)."""
 
     def __enter__(self):
-        from nerf_mae_torch.models import unetr
-
-        self._unetr = unetr
-        self._norms = unetr.norm_act, unetr.norm_add_act, res_norm._InstanceNorm3d
-        unetr.norm_act, unetr.norm_add_act = res_norm.norm_act_plain, res_norm.norm_add_act_plain
-        res_norm._InstanceNorm3d = _SumInstanceNorm3d
+        self._sums = _SumStatistics()
+        self._sums.__enter__()
         self._conv = torch.backends.cudnn.benchmark
         self._blas = None
         if torch.cuda.is_available():
@@ -3657,7 +3647,7 @@ class other_float32_algorithms:
         return self
 
     def __exit__(self, *exc):
-        self._unetr.norm_act, self._unetr.norm_add_act, res_norm._InstanceNorm3d = self._norms
+        self._sums.__exit__(*exc)
         torch.backends.cudnn.benchmark = self._conv
         if self._blas is not None:
             torch.backends.cuda.preferred_blas_library(self._blas)
@@ -3819,7 +3809,7 @@ def phase_spatial(tmp, mae_ckpt, smi):
         "steps": SP_STEPS, "seed": 0, "resolution": RES, "batch": SP_BATCH,
         "mae_ckpt": mae_ckpt, "workdir": workdir}, local_world=1, timeout_s=SP_TIMEOUT_S,
         threads=4)
-    zero = {"block": 0, "block_bwd": 0, "attention": 0, "attention_bwd": 0}
+    zero = dict.fromkeys(read_launches(), 0)  # every kernel's, the fused norms' too
     worst = lambda rels: [f"{max(g.values()):.3e}" for g in rels]
     failed = []
     for dtype in ("float32", "bfloat16"):

@@ -32,10 +32,11 @@ class SwinConfig:
     stochastic_depth_prob: float = 0.1
     expand_dim: bool = True
     norm_eps: float = 1e-5
-    # "auto": the hand-written CUDA kernels on CUDA tensors, the plain
-    # composition on CPU tensors; "kernel" forces the kernel wrappers (whose
-    # CPU branch is the kernel's plain version); "plain" forces the plain
-    # composition everywhere.
+    # Read by kernels.wanted for every layer with a kernel (the Swin blocks,
+    # the res blocks' fused norms). "auto": the hand-written CUDA kernels on
+    # CUDA tensors, the plain composition on CPU tensors; "kernel" forces the
+    # kernel wrappers (whose CPU branch is the kernel's plain version);
+    # "plain" forces the plain composition everywhere.
     attention_impl: str = "auto"
     # MLP activation: "tanh" (tanh-approximated gelu, what the fused block
     # kernel implements) or "erf" (exact, torch nn.GELU parity; routes the

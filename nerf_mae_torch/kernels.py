@@ -5,6 +5,7 @@ library with a plain C interface and loaded with ctypes. Libraries go to
 `build/kernels/<hash>/` beside the package (listed in .gitignore), keyed by a
 hash of every source and of the flags, and are built at first use: all
 sources at once, one nvcc process each. Nothing here runs at import time.
+`wanted` is the rule that picks a layer's kernel or its plain composition.
 """
 
 from __future__ import annotations
@@ -101,6 +102,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build_dir() / f"lib{name}.so"))
             _libs[name] = lib
         return lib
+
+
+def wanted(x, impl: str, spatial=None) -> bool:
+    """Whether a layer with a kernel (Swin block, res block norms) runs it on
+    x: never under attention_impl "plain" or on a space axis (`spatial`: the
+    kernels take whole grids), always under "kernel" (a wrapper's CPU branch
+    is the kernel's plain version), under "auto" on a CUDA tensor."""
+    if impl == "plain" or spatial is not None:
+        return False
+    return impl == "kernel" or x.is_cuda
 
 
 def gemm_operand(t, dtype, name: str):

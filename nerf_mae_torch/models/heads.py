@@ -5,7 +5,9 @@ The reference's SwinTransformer_VoxelSR_* and SwinTransformer_VoxelSemantics_*
 families (reference: nerf_rpn/model/feature_extractor.py:1310-3974). Both
 reuse the pretrained MAE trunk AND its decoder4/3/2, under `base` with the
 MAE's own names (`base.patch_partition`, `base.stages`, `base.decoder4..2`),
-so a MAE state dict grafts by prefix (train/checkpoint.py:graft_mae). Then:
+so a MAE state dict grafts by prefix (train/checkpoint.py:graft_mae); the
+MAE's own builder and decoder pass make and run them (models/mae.py
+build_trunk, decode). Then:
 
   * encoder1: a res block on the raw R^3 input, the skip of
   * decoder1: an up-4x block fusing the decoder output with encoder1
@@ -54,8 +56,7 @@ from torch import nn
 from nerf_mae_torch import tracing
 from nerf_mae_torch.config import MAEConfig
 from nerf_mae_torch.metrics import CountSum, one_rank
-from nerf_mae_torch.models.mae import embed_tokens, make_patch_partition
-from nerf_mae_torch.models.swin import SwinEncoder3D, remat_call
+from nerf_mae_torch.models.mae import build_trunk, decode, embed_tokens, traced_piece
 from nerf_mae_torch.models.unetr import UnetOutBlock3D, UnetResBlock3D, UnetrUpBlock3D
 from nerf_mae_torch.parallel import spatial as sp
 
@@ -65,21 +66,7 @@ from nerf_mae_torch.parallel import spatial as sp
 SR_TRUNK_KEYS = ("patch_partition", "stages", "decoder4", "decoder3", "decoder2")
 
 
-def maybe_remat(cfg: MAEConfig, module, *args):
-    """module(*args), under torch.utils.checkpoint in training with cfg.remat
-    (recomputed whole on a space axis: its collectives run on every rank)."""
-    if cfg.remat and torch.is_grad_enabled():
-        tracing.count("dense_head.remat")
-        return remat_call(module, cfg.remat_policy, *args,
-                          early_stop=getattr(module, "spatial", None) is None)
-    return module(*args)
-
-
-def traced_piece(name: str, cfg: MAEConfig, module, *args):
-    """maybe_remat(cfg, module, *args) inside the span `name`, its output
-    marked for the piece's backward record."""
-    with tracing.span(name):
-        return tracing.mark(maybe_remat(cfg, module, *args), name)
+REMAT = "dense_head.remat"  # the counter of the pieces run under checkpoint
 
 
 class MAETrunkWithDecoder(nn.Module):
@@ -90,27 +77,15 @@ class MAETrunkWithDecoder(nn.Module):
     def __init__(self, cfg: MAEConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        e, dt = cfg.swin.embed_dim, cfg.dtype
-        self.patch_partition = make_patch_partition(cfg, device)
-        remat_stages = cfg.remat_stages
-        if remat_stages is None:
-            remat_stages = (cfg.remat,) * len(cfg.swin.depths)
-        self.stages = SwinEncoder3D(cfg.swin, dtype=dt, device=device,
-                                    remat_stages=remat_stages,
-                                    remat_policy=cfg.remat_policy)
-        self.decoder4 = UnetrUpBlock3D(e * 8, e * 4, dtype=dt, device=device)
-        self.decoder3 = UnetrUpBlock3D(e * 4, e * 2, dtype=dt, device=device)
-        self.decoder2 = UnetrUpBlock3D(e * 2, e, dtype=dt, device=device)
+        build_trunk(self, cfg, device)
 
     def forward(self, grids: torch.Tensor, deterministic: bool = True,
                 droppath_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         with tracing.span("nerf_mae.embed"):
             x = tracing.mark(embed_tokens(self.patch_partition, grids, self.cfg, self.spatial),
                              "nerf_mae.embed")
-        f = self.stages(x, deterministic, droppath_generator)
-        d = traced_piece("nerf_mae.decoder4", self.cfg, self.decoder4, f[3], f[2])
-        d = traced_piece("nerf_mae.decoder3", self.cfg, self.decoder3, d, f[1])
-        return traced_piece("nerf_mae.decoder2", self.cfg, self.decoder2, d, f[0])
+        return decode(self, self.stages(x, deterministic, droppath_generator), self.cfg.remat,
+                      counter=REMAT)
 
 
 class _DenseHead(nn.Module):
@@ -123,21 +98,24 @@ class _DenseHead(nn.Module):
     def __init__(self, cfg: MAEConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        e, dt = cfg.swin.embed_dim, cfg.dtype
+        e, dt, impl = cfg.swin.embed_dim, cfg.dtype, cfg.swin.attention_impl
         self.base = MAETrunkWithDecoder(cfg, device)
-        self.encoder1 = UnetResBlock3D(cfg.input_channels, e // 2, dtype=dt, device=device)
+        self.encoder1 = UnetResBlock3D(cfg.input_channels, e // 2, dtype=dt,
+                                       attention_impl=impl, device=device)
         self.decoder1 = UnetrUpBlock3D(e, e // 2, upsample_factor=cfg.swin.patch_size[0],
-                                       use_skip=True, dtype=dt, device=device)
+                                       use_skip=True, dtype=dt, attention_impl=impl,
+                                       device=device)
 
     def forward(self, grids: torch.Tensor, deterministic: bool = True,
                 droppath_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """grids [B, R, R, R, 4] -> the head's float32 output. A training
         forward (deterministic=False) draws the stochastic-depth keep factors
         from `droppath_generator`."""
-        enc1 = traced_piece("nerf_mae.encoder1", self.cfg, self.encoder1,
-                            grids.to(self.cfg.dtype))
+        remat = self.cfg.remat
+        enc1 = traced_piece("nerf_mae.encoder1", self, remat, self.encoder1,
+                            grids.to(self.cfg.dtype), counter=REMAT)
         d = self.base(grids, deterministic, droppath_generator)
-        d = traced_piece("nerf_mae.decoder1", self.cfg, self.decoder1, d, enc1)
+        d = traced_piece("nerf_mae.decoder1", self, remat, self.decoder1, d, enc1, counter=REMAT)
         with tracing.span("nerf_mae.head"):
             out = tracing.mark(self.head(d), "nerf_mae.head")
         if tracing.on():

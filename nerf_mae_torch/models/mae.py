@@ -81,13 +81,57 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1) + bias.to(dtype)
 
 
-def make_patch_partition(cfg: MAEConfig, device) -> nn.ModuleDict:
-    """The patch embedding's conv and LayerNorm (reference `patch_partition`)."""
-    return nn.ModuleDict({
-        "0": Conv3d(cfg.input_channels, cfg.swin.embed_dim, cfg.swin.patch_size[0],
-                    device=device),
-        "2": Norm(cfg.swin.embed_dim, device=device),
+def build_trunk(model: nn.Module, cfg: MAEConfig, device) -> None:
+    """The MAE trunk and its decoders 4/3/2 onto `model` (SwinMAE3D, the
+    dense heads' `base`), under the reference's names: `patch_partition`
+    (the patch embedding's conv and LayerNorm), `stages` (remat_stages, or
+    cfg.remat on every stage where unset) and `decoder4..2`, whose res
+    blocks take cfg.swin.attention_impl."""
+    e, dt = cfg.swin.embed_dim, cfg.dtype
+    model.patch_partition = nn.ModuleDict({
+        "0": Conv3d(cfg.input_channels, e, cfg.swin.patch_size[0], device=device),
+        "2": Norm(e, device=device),
     })
+    remat_stages = cfg.remat_stages
+    if remat_stages is None:
+        remat_stages = (cfg.remat,) * len(cfg.swin.depths)
+    model.stages = SwinEncoder3D(cfg.swin, dtype=dt, device=device,
+                                 remat_stages=remat_stages, remat_policy=cfg.remat_policy)
+    up = functools.partial(UnetrUpBlock3D, dtype=dt, attention_impl=cfg.swin.attention_impl,
+                           device=device)
+    model.decoder4, model.decoder3 = up(8 * e, 4 * e), up(4 * e, 2 * e)
+    model.decoder2 = up(2 * e, e)
+
+
+def maybe_remat(model: nn.Module, remat: bool, fn, *args, counter: Optional[str] = None):
+    """fn(*args), under torch.utils.checkpoint with model.cfg.remat_policy
+    where `remat` and grad mode are on (recomputed whole on a space axis,
+    model.spatial: its collectives run on every rank), each such run
+    added to the counter `counter` (tracing.count)."""
+    if remat and torch.is_grad_enabled():
+        if counter:
+            tracing.count(counter)
+        return remat_call(fn, model.cfg.remat_policy, *args, early_stop=model.spatial is None)
+    return fn(*args)
+
+
+def traced_piece(name: str, model: nn.Module, remat: bool, fn, *args,
+                 counter: Optional[str] = None):
+    """maybe_remat(...) inside the span `name`, its output marked for the
+    piece's backward record (a recomputation falls in the piece's `.bwd`)."""
+    with tracing.span(name):
+        return tracing.mark(maybe_remat(model, remat, fn, *args, counter=counter), name)
+
+
+def decode(model: nn.Module, features: List[torch.Tensor], remat: bool,
+           counter: Optional[str] = None) -> torch.Tensor:
+    """decoder4/3/2 of `model` (build_trunk's) over the encoder's feature
+    pyramid, each a traced_piece in its span nerf_mae.decoder{4,3,2}."""
+    d = features[3]
+    for i in (4, 3, 2):
+        d = traced_piece(f"nerf_mae.decoder{i}", model, remat, getattr(model, f"decoder{i}"),
+                         d, features[i - 2], counter=counter)
+    return d
 
 
 def embed_tokens(patch_partition: nn.ModuleDict, grids: torch.Tensor,
@@ -115,40 +159,22 @@ class SwinMAE3D(nn.Module):
     def __init__(self, cfg: MAEConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        dt = cfg.dtype
-        e = cfg.swin.embed_dim
+        dt, e, impl = cfg.dtype, cfg.swin.embed_dim, cfg.swin.attention_impl
         p = cfg.swin.patch_size[0]
-        self.patch_partition = make_patch_partition(cfg, device)
+        build_trunk(self, cfg, device)
         self.mask_token = nn.Parameter(torch.empty(e, device=device))
-        remat_stages = cfg.remat_stages
-        if remat_stages is None:
-            remat_stages = (cfg.remat,) * len(cfg.swin.depths)
-        self.stages = SwinEncoder3D(cfg.swin, dtype=dt, device=device,
-                                    remat_stages=remat_stages,
-                                    remat_policy=cfg.remat_policy)
-        self.decoder4 = UnetrUpBlock3D(e * 8, e * 4, dtype=dt, device=device)
-        self.decoder3 = UnetrUpBlock3D(e * 4, e * 2, dtype=dt, device=device)
-        self.decoder2 = UnetrUpBlock3D(e * 2, e, dtype=dt, device=device)
         if cfg.decoder_type == "subpixel":
-            self.subpixel_head = SubpixelHead3D(e, cfg.out_channels, patch=p,
-                                                dtype=dt, device=device)
+            self.subpixel_head = SubpixelHead3D(e, cfg.out_channels, patch=p, dtype=dt,
+                                                attention_impl=impl, device=device)
         else:
-            self.decoder1 = UnetrUpBlock3D(e, e // 2, upsample_factor=p,
-                                           use_skip=False, dtype=dt, device=device)
+            self.decoder1 = UnetrUpBlock3D(e, e // 2, upsample_factor=p, use_skip=False,
+                                           dtype=dt, attention_impl=impl, device=device)
             self.out = UnetOutBlock3D(e // 2, cfg.out_channels, dtype=dt,
                                       device=device)
 
     def embed(self, grids: torch.Tensor) -> torch.Tensor:
         """embed_tokens through this model's patch embedding."""
         return embed_tokens(self.patch_partition, grids, self.cfg, self.spatial)
-
-    def _decode(self, module, *args):
-        """A decoder block, under torch.utils.checkpoint with decoder_remat
-        in training."""
-        if self.cfg.decoder_remat and torch.is_grad_enabled():
-            return remat_call(module, self.cfg.remat_policy, *args,
-                              early_stop=self.spatial is None)
-        return module(*args)
 
     def forward(
         self,
@@ -186,19 +212,14 @@ class SwinMAE3D(nn.Module):
             x = torch.where(token_mask[..., None], self.mask_token.to(cfg.dtype), x)
             x = tracing.mark(x, "nerf_mae.embed")
 
-        f = self.stages(x, deterministic, droppath_generator)
-        d = f[3]
-        for name, decoder, skip in (("nerf_mae.decoder4", self.decoder4, f[2]),
-                                    ("nerf_mae.decoder3", self.decoder3, f[1]),
-                                    ("nerf_mae.decoder2", self.decoder2, f[0])):
-            with tracing.span(name):
-                d = tracing.mark(self._decode(decoder, d, skip), name)
+        remat = cfg.decoder_remat
+        d = decode(self, self.stages(x, deterministic, droppath_generator), remat)
         with tracing.span("nerf_mae.head"):
             if cfg.decoder_type == "subpixel":
-                pred = self._decode(
-                    lambda t: self.subpixel_head(t, patched=patched_pred), d)
+                pred = maybe_remat(self, remat,
+                                   lambda t: self.subpixel_head(t, patched=patched_pred), d)
             else:
-                pred = self.out(self._decode(self.decoder1, d))
+                pred = self.out(maybe_remat(self, remat, self.decoder1, d))
                 if patched_pred:
                     pred = patchify_3d(pred, cfg.swin.patch_size[0])
             pred = tracing.mark(pred.float(), "nerf_mae.head")

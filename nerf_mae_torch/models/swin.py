@@ -9,11 +9,11 @@ reference torch state_dict (`norm1`, `attn.qkv`, `attn.proj`,
 merges' `norm` and `reduction`), so a reference checkpoint loads as is.
 
 Dispatch per block, as in the JAX package (swin.py:117-132,176-238):
-with the kernels wanted (attention_impl "kernel", or "auto" on a CUDA
-tensor), a tanh-GELU block with C <= 512 runs the fused Swin-block kernel;
-otherwise the attention runs the fused window-attention kernel where
-C <= 512, with LN and the MLP in plain PyTorch; everything else is the
-plain composition. Under autograd the kernels run through their
+with the kernels wanted (kernels.wanted: attention_impl "kernel", or
+"auto" on a CUDA tensor, off a space axis), a tanh-GELU block with
+C <= 512 runs the fused Swin-block kernel; otherwise the attention runs
+the fused window-attention kernel where C <= 512, with LN and the MLP in
+plain PyTorch; everything else is the plain composition. Under autograd the kernels run through their
 torch.autograd.Functions (FusedSwinBlockFn, FusedWindowAttentionFn), whose
 backwards are kernels too.
 
@@ -46,7 +46,7 @@ from torch.utils.checkpoint import (
     set_checkpoint_early_stop,
 )
 
-from nerf_mae_torch import tracing
+from nerf_mae_torch import kernels, tracing
 from nerf_mae_torch.config import SwinConfig
 from nerf_mae_torch.ops.draws import batch_rand
 from nerf_mae_torch.ops.fused_attention import (
@@ -187,13 +187,6 @@ class SwinBlock3D(nn.Module):
         # set by SwinEncoder3D from the stage's remat setting
         self.remat, self.remat_policy = False, "nothing"
 
-    def _kernels_wanted(self, x: torch.Tensor) -> bool:
-        if self.attention_impl == "plain" or self.spatial is not None:
-            return False
-        if self.attention_impl == "kernel":
-            return True
-        return x.is_cuda
-
     def _kernel_weights(self):
         """The qkv, proj, fc1 and fc2 weights in the compute dtype for the
         kernels. Without autograd the casts are cached and made again only
@@ -215,8 +208,9 @@ class SwinBlock3D(nn.Module):
 
     def _kernels(self, x: torch.Tensor) -> bool:
         """True where this block runs a kernel: the fused block (tanh GELU)
-        or the fused window attention."""
-        return self._kernels_wanted(x) and kernel_supported(x.shape[-1], self.window)
+        or the fused window attention (kernels.wanted, then the shape)."""
+        return (kernels.wanted(x, self.attention_impl, self.spatial)
+                and kernel_supported(x.shape[-1], self.window))
 
     def keep_factors(self, x: torch.Tensor, deterministic: bool,
                      generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -247,10 +241,10 @@ class SwinBlock3D(nn.Module):
 
     def _block(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
         attn, fc1, fc2 = self.attn, self.mlp["0"], self.mlp["3"]
-        kernels = self._kernels(x)
+        kernel = self._kernels(x)
         grad = torch.is_grad_enabled()
 
-        if kernels and self.gelu == "tanh":
+        if kernel and self.gelu == "tanh":
             if grad:  # float32 parameters: the Function casts them inside
                 weights = (self.attn.qkv.weight, self.attn.proj.weight,
                            fc1.weight, fc2.weight)
@@ -270,7 +264,7 @@ class SwinBlock3D(nn.Module):
             ).to(x.dtype)
 
         h = layer_norm(x, self.norm1.weight, self.norm1.bias, self.norm_eps)
-        if kernels:
+        if kernel:
             attention = FusedWindowAttentionFn.apply if grad else fused_window_attention
             w_qkv, w_proj = self._kernel_weights()[:2]
         else:

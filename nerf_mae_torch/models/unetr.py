@@ -11,9 +11,10 @@ reference state_dict (`transp_conv`, `conv_block.conv1..3`, `out.conv`).
 On a space axis (`spatial` set by parallel.spatial.set_spatial) every
 block takes and returns the even slab layout of its grid: a 3^3 convolution
 reads a halo of one plane from each neighbour (zeros at the global ends,
-where SAME pads), the instance norm sums its statistics over the space
-group, a transposed convolution stays local, and an up block relayouts its
-upsampled input where twice the coarse layout differs from the fine one.
+where SAME pads), the instance norm is the plain one with its sums
+all-reduced over the space group, a transposed convolution stays local,
+and an up block relayouts its upsampled input where twice the coarse
+layout differs from the fine one.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_mae_torch.ops.res_norm import _InstanceNorm3d, lrelu, norm_act, norm_add_act
+from nerf_mae_torch import kernels
+from nerf_mae_torch.ops.res_norm import _InstanceNorm3d, norm_act, norm_add_act
 from nerf_mae_torch.parallel import spatial as sp
 
 
@@ -50,7 +52,7 @@ class Conv3d(nn.Module):
                 add_bias: bool = True) -> torch.Tensor:
         """'SAME' cross-correlation at the compute dtype, NDHWC in and out;
         the bias is added in the compute dtype, as flax nn.Conv does, unless
-        add_bias is False (the res block hands it to its fused norm). A
+        add_bias is False (the res block hands it to its norms). A
         stride pads as flax's SAME does: ceil(n / stride) outputs, the odd
         pad voxel after. On a space axis (stride 1 only) the slab takes a
         halo of k // 2 planes and only axes 2-3 are padded."""
@@ -101,55 +103,12 @@ def empty_result(x, out_ch, dtype, *params, scale: int = 1):
     return sp.empty_result((b, 0, h * scale, w * scale, out_ch), x, *params).to(dtype)
 
 
-class _SlabInstanceNorm3d(torch.autograd.Function):
-    """_InstanceNorm3d on a slab of a space axis: the per-(sample, channel)
-    sums of x, then of (x - mean)^2, are summed over the space group
-    before dividing by the global voxel count (the one-process path's
-    two-pass formula); the backward's sums of g and g * xhat likewise."""
-
-    @staticmethod
-    def _sums(x, fn):
-        out = torch.zeros((x.shape[0], 1, 1, 1, x.shape[-1]), dtype=torch.float32,
-                          device=x.device)
-        for b in _InstanceNorm3d._chunks(x):
-            out[b] = fn(b).sum(dim=(1, 2, 3), keepdim=True)
-        return out
-
-    @staticmethod
-    def forward(ctx, x, eps, mesh):
-        n = sp.grid_len(x) * x.shape[2] * x.shape[3]
-        mean = sp.all_reduce(_SlabInstanceNorm3d._sums(x, lambda b: x[b].float()), mesh) / n
-        var = sp.all_reduce(_SlabInstanceNorm3d._sums(
-            x, lambda b: (x[b].float() - mean[b]) ** 2), mesh) / n
-        stats = torch.stack([mean, torch.rsqrt(var + eps)])
-        out = torch.empty_like(x)
-        for b in _InstanceNorm3d._chunks(x):
-            out[b] = (x[b].float() - stats[0, b]) * stats[1, b]
-        ctx.save_for_backward(x, stats)
-        ctx.n, ctx.mesh = n, mesh
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, stats = ctx.saved_tensors
-        xhat = lambda b: (x[b].float() - stats[0, b]) * stats[1, b]
-        sums = torch.stack([_SlabInstanceNorm3d._sums(g, lambda b: g[b].float()),
-                            _SlabInstanceNorm3d._sums(g, lambda b: g[b].float() * xhat(b))])
-        gm, gxm = sp.all_reduce(sums, ctx.mesh) / ctx.n
-        dx = torch.empty_like(x)
-        for b in _InstanceNorm3d._chunks(x):
-            dx[b] = stats[1, b] * (g[b].float() - gm[b] - xhat(b) * gxm[b])
-        return dx, None, None
-
-
 def instance_norm_3d(x: torch.Tensor, eps: float = 1e-5, mesh=None) -> torch.Tensor:
     """Per-sample, per-channel normalization over the spatial dims, no
     affine, population variance in f32 (torch nn.InstanceNorm3d defaults);
     the result in x's dtype. On a space axis (mesh) x is a slab and the
     statistics are the whole grid's."""
-    if mesh is not None:
-        return _SlabInstanceNorm3d.apply(x, eps, mesh)
-    return _InstanceNorm3d.apply(x, eps)
+    return _InstanceNorm3d.apply(x, eps, mesh)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -172,36 +131,33 @@ class UnetResBlock3D(nn.Module):
     """conv3 -> IN -> lrelu -> conv3 -> IN (+ 1x1 shortcut) -> lrelu.
 
     (reference: unetr_block.py:23-93; LeakyReLU slope 0.01)
+
+    The convolutions run without their biases, which go to the norms
+    (ops/res_norm.py): the fused kernels where kernels.wanted says so for
+    `attention_impl` (SwinConfig's), else the plain composition.
     """
 
     spatial = None  # the mesh on a space axis
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, attention_impl: str = "auto",
+                 device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.attention_impl = dtype, attention_impl
         self.conv1 = Conv3d(in_ch, out_ch, kernel_size, device=device)
         self.conv2 = Conv3d(out_ch, out_ch, kernel_size, device=device)
         self.conv3 = (Conv3d(in_ch, out_ch, 1, device=device)
                       if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.spatial is not None:
-            norm = lambda t: instance_norm_3d(t, mesh=self.spatial)
-            h = lrelu(norm(self.conv1(x, self.dtype)))
-            h = norm(self.conv2(h, self.dtype))
-            residual = x
-            if self.conv3 is not None:
-                residual = norm(self.conv3(x, self.dtype))
-            return lrelu(h + residual)
-        # the biases go to the fused norms (ops/res_norm.py), where they cancel
-        # in the normalised values and get their gradients
-        h = norm_act(self.conv1(x, self.dtype, add_bias=False), self.conv1.bias)
+        norm = dict(kernel=kernels.wanted(x, self.attention_impl, self.spatial),
+                    mesh=self.spatial)
+        h = norm_act(self.conv1(x, self.dtype, add_bias=False), self.conv1.bias, **norm)
         h = self.conv2(h, self.dtype, add_bias=False)
         if self.conv3 is not None:
             return norm_add_act(h, self.conv2.bias, self.conv3(x, self.dtype, add_bias=False),
-                                self.conv3.bias)
-        return norm_add_act(h, self.conv2.bias, x.to(h.dtype))
+                                self.conv3.bias, **norm)
+        return norm_add_act(h, self.conv2.bias, x.to(h.dtype), **norm)
 
 
 class UnetrUpBlock3D(nn.Module):
@@ -214,14 +170,15 @@ class UnetrUpBlock3D(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, upsample_factor: int = 2,
                  use_skip: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 attention_impl: str = "auto", device=None):
         super().__init__()
         self.dtype, self.use_skip = dtype, use_skip
         self.factor = upsample_factor
         self.transp_conv = ConvTranspose3d(in_ch, out_ch, upsample_factor,
                                            device=device)
         res_in = 2 * out_ch if use_skip else out_ch
-        self.conv_block = UnetResBlock3D(res_in, out_ch, dtype=dtype, device=device)
+        self.conv_block = UnetResBlock3D(res_in, out_ch, dtype=dtype,
+                                         attention_impl=attention_impl, device=device)
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -243,10 +200,12 @@ class SubpixelHead3D(nn.Module):
     `subpixel_head.res.*`, `subpixel_head.proj`)."""
 
     def __init__(self, in_ch: int, out_channels: int, patch: int = 4,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, attention_impl: str = "auto",
+                 device=None):
         super().__init__()
         self.out_channels, self.patch, self.dtype = out_channels, patch, dtype
-        self.res = UnetResBlock3D(in_ch, in_ch, dtype=dtype, device=device)
+        self.res = UnetResBlock3D(in_ch, in_ch, dtype=dtype, attention_impl=attention_impl,
+                                  device=device)
         self.proj = Conv3d(in_ch, out_channels * patch**3, 3, device=device)
 
     def forward(self, x: torch.Tensor, patched: bool = False) -> torch.Tensor:

@@ -9,9 +9,12 @@ a and r are NDHWC convolution outputs without their bias, IN the
 per-(sample, channel) instance norm over the voxels (population variance,
 eps 1e-5, no affine), lrelu LeakyReLU with slope 0.01.
 
-CPU tensor: the plain version, the composition the block used before the
-kernels (the bias add in the tensor's dtype, `_InstanceNorm3d`, `lrelu`,
-the add). CUDA tensor: `csrc/res_norm.cu` through one autograd Function,
+Where the caller's `kernel` is False (kernels.wanted: attention_impl
+"plain", or a space axis) or on a CPU tensor: the plain version, the
+composition the block used before the kernels (the bias add in the
+tensor's dtype, `_InstanceNorm3d`, `lrelu`, the add), whose instance norm
+sums its statistics over the space group of `mesh` on a space axis.
+Otherwise: `csrc/res_norm.cu` through one autograd Function,
 whose forward keeps for the backward only its inputs (in their dtype) and
 the [operands, 2, B, C] float32 statistics; no fallback. The kernels read
 each operand the fewest times: a statistics pass, an apply pass, and in
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from nerf_mae_torch import kernels
+from nerf_mae_torch.parallel import spatial as sp
 
 EPS = 1e-5
 SLOPE = 0.01
@@ -45,7 +49,10 @@ class _InstanceNorm3d(torch.autograd.Function):
     a full-resolution grid (160^3, 48 channels, batch 8: 3.1 GB in bf16)
     autograd's own graph would keep two float32 copies of the input and
     make three more at once; the token-grid decoders take the whole batch
-    in one chunk."""
+    in one chunk. On a space axis (`mesh`) x is a slab: the per-(sample,
+    channel) sums of x, then of (x - mean)^2, are summed over the space
+    group before dividing by the global voxel count, and so are the
+    backward's sums of g and g * xhat."""
 
     CHUNK = 1 << 28
 
@@ -55,40 +62,65 @@ class _InstanceNorm3d(torch.autograd.Function):
         return [slice(s, s + n) for s in range(0, x.shape[0], n)]
 
     @staticmethod
-    def forward(ctx, x, eps):
+    def _sums(x, fn):
+        """[B, 1, 1, 1, C] float32: fn(chunk) summed over the voxels."""
+        out = torch.zeros((x.shape[0], 1, 1, 1, x.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        for b in _InstanceNorm3d._chunks(x):
+            out[b] = fn(b).sum(dim=(1, 2, 3), keepdim=True)
+        return out
+
+    @staticmethod
+    def forward(ctx, x, eps, mesh=None):
+        sums = _InstanceNorm3d._sums
+        if mesh is None:
+            stats = torch.empty((2, x.shape[0], 1, 1, 1, x.shape[-1]),
+                                dtype=torch.float32, device=x.device)
+        else:
+            ctx.n = sp.grid_len(x) * x.shape[2] * x.shape[3]
+            mean = sp.all_reduce(sums(x, lambda b: x[b].float()), mesh) / ctx.n
+            var = sp.all_reduce(sums(x, lambda b: (x[b].float() - mean[b]) ** 2), mesh) / ctx.n
+            stats = torch.stack([mean, torch.rsqrt(var + eps)])
         out = torch.empty_like(x)
-        stats = torch.empty((2, x.shape[0], 1, 1, 1, x.shape[-1]),
-                            dtype=torch.float32, device=x.device)
         for b in _InstanceNorm3d._chunks(x):
             x32 = x[b].float()
-            var, mean = torch.var_mean(x32, dim=(1, 2, 3), keepdim=True, unbiased=False)
-            stats[0, b], stats[1, b] = mean, torch.rsqrt(var + eps)
-            out[b] = (x32 - mean) * stats[1, b]
+            if mesh is None:
+                var, mean = torch.var_mean(x32, dim=(1, 2, 3), keepdim=True, unbiased=False)
+                stats[0, b], stats[1, b] = mean, torch.rsqrt(var + eps)
+            out[b] = (x32 - stats[0, b]) * stats[1, b]
         ctx.save_for_backward(x, stats)
+        ctx.mesh = mesh
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, stats = ctx.saved_tensors
+        xhat = lambda b: (x[b].float() - stats[0, b]) * stats[1, b]
+        if ctx.mesh is not None:
+            sums = _InstanceNorm3d._sums
+            gm, gxm = sp.all_reduce(torch.stack([
+                sums(g, lambda b: g[b].float()),
+                sums(g, lambda b: g[b].float() * xhat(b))]), ctx.mesh) / ctx.n
         dx = torch.empty_like(x)
         for b in _InstanceNorm3d._chunks(x):
-            rstd = stats[1, b]
-            xhat = (x[b].float() - stats[0, b]) * rstd
-            g32 = g[b].float()
-            gm = g32.mean(dim=(1, 2, 3), keepdim=True)
-            gxm = (g32 * xhat).mean(dim=(1, 2, 3), keepdim=True)
-            dx[b] = rstd * (g32 - gm - xhat * gxm)
-        return dx, None
+            g32, xh = g[b].float(), xhat(b)
+            if ctx.mesh is None:
+                means = (g32.mean(dim=(1, 2, 3), keepdim=True),
+                         (g32 * xh).mean(dim=(1, 2, 3), keepdim=True))
+            else:
+                means = gm[b], gxm[b]
+            dx[b] = stats[1, b] * (g32 - means[0] - xh * means[1])
+        return dx, None, None
 
 
-def norm_act_plain(a, bias, eps: float = EPS):
-    return lrelu(_InstanceNorm3d.apply(a + bias.to(a.dtype), eps))
+def norm_act_plain(a, bias, eps: float = EPS, mesh=None):
+    return lrelu(_InstanceNorm3d.apply(a + bias.to(a.dtype), eps, mesh))
 
 
-def norm_add_act_plain(a, bias, r, bias_r=None, eps: float = EPS):
-    h = _InstanceNorm3d.apply(a + bias.to(a.dtype), eps)
+def norm_add_act_plain(a, bias, r, bias_r=None, eps: float = EPS, mesh=None):
+    h = _InstanceNorm3d.apply(a + bias.to(a.dtype), eps, mesh)
     if bias_r is not None:
-        r = _InstanceNorm3d.apply(r + bias_r.to(r.dtype), eps)
+        r = _InstanceNorm3d.apply(r + bias_r.to(r.dtype), eps, mesh)
     return lrelu(h + r)
 
 
@@ -349,24 +381,30 @@ class _ResNormAct(torch.autograd.Function):
         return dx0, dbias[0].to(ctx.bias_dtypes[0]), dx1, db1, None
 
 
-def _on_card(name: str, a: torch.Tensor) -> None:
-    if a.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {a.device}")
+def _on_card(name: str, a: torch.Tensor, mesh) -> None:
+    if a.device.type != "cuda" or mesh is not None:  # the kernels take whole grids
+        raise ValueError(f"{name}: unsupported device {a.device}"
+                         + (" on a space axis" if mesh is not None else ""))
 
 
-def norm_act(a: torch.Tensor, bias: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """lrelu(IN(a + bias)) in a's dtype; a is [B, ..., C], bias [C]."""
-    if a.device.type == "cpu":
-        return norm_act_plain(a, bias, eps)
-    _on_card("norm_act", a)
+def norm_act(a: torch.Tensor, bias: torch.Tensor, eps: float = EPS, kernel: bool = True,
+             mesh=None) -> torch.Tensor:
+    """lrelu(IN(a + bias)) in a's dtype; a is [B, ..., C], bias [C]. The
+    kernels where `kernel` (kernels.wanted), else the plain version, whose
+    statistics on a space axis (`mesh`) are the whole grid's."""
+    if not kernel or a.device.type == "cpu":
+        return norm_act_plain(a, bias, eps, mesh)
+    _on_card("norm_act", a, mesh)
     return _ResNormAct.apply(a, bias, None, None, eps)
 
 
 def norm_add_act(a: torch.Tensor, bias: torch.Tensor, r: torch.Tensor,
-                 bias_r: Optional[torch.Tensor] = None, eps: float = EPS) -> torch.Tensor:
+                 bias_r: Optional[torch.Tensor] = None, eps: float = EPS,
+                 kernel: bool = True, mesh=None) -> torch.Tensor:
     """lrelu(IN(a + bias) + IN(r + bias_r)), or lrelu(IN(a + bias) + r)
-    without bias_r; in a's dtype, r of a's shape and dtype."""
-    if a.device.type == "cpu":
-        return norm_add_act_plain(a, bias, r, bias_r, eps)
-    _on_card("norm_add_act", a)
+    without bias_r; in a's dtype, r of a's shape and dtype; `kernel` and
+    `mesh` as in norm_act."""
+    if not kernel or a.device.type == "cpu":
+        return norm_add_act_plain(a, bias, r, bias_r, eps, mesh)
+    _on_card("norm_add_act", a, mesh)
     return _ResNormAct.apply(a, bias, r, bias_r, eps)

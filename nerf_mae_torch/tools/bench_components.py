@@ -199,13 +199,15 @@ def main(argv=None) -> Dict:
                                         (dims[1], dims[0], t // 2)]):
         name = f"decoder{4 - lvl}_[{b},{gi}^3,{ci}]"
         if args.only in name:
-            up = _fresh(UnetrUpBlock3D(ci, cs, dtype=dt, device=dev))
+            up = _fresh(UnetrUpBlock3D(ci, cs, dtype=dt, attention_impl=swin.attention_impl,
+                                       device=dev))
             skip = randn(b, 2 * gi, 2 * gi, 2 * gi, cs)
             record(name, lambda xx, m=up, s=skip: m(xx, s), up.parameters(),
                    [randn(b, gi, gi, gi, ci)])
     name = "subpixel_head_patched"
     if args.only in name:
-        head = _fresh(SubpixelHead3D(e, cfg.out_channels, patch=pt, dtype=dt, device=dev))
+        head = _fresh(SubpixelHead3D(e, cfg.out_channels, patch=pt, dtype=dt,
+                                     attention_impl=swin.attention_impl, device=dev))
         record(name, lambda xx: head(xx, patched=True), head.parameters(),
                [randn(b, t, t, t, e)])
 

@@ -558,3 +558,32 @@ def test_training_steps_launch_the_res_norm_kernels(dev, kind, preset, res):
     assert blocks >= 4 and reduce == bwd == 2 * blocks
     assert stats == apply and 2 * blocks <= stats <= 4 * blocks
     assert math.isfinite(float(metrics["loss"]))
+
+
+@pytest.mark.parametrize("impl", ["plain", "auto"])
+def test_plain_launches_no_kernel(dev, impl):
+    """One MAE train step (swin_b, 64^3, batch 2). Under "plain" every layer
+    takes the plain composition (kernels.wanted): no fused-block and no
+    fused-norm launch. Under "auto" the fused block's 22 forward and 22
+    backward launches (stages 0-2) and the fused norms' launches that
+    chip_smoke.check_res_norm_launches checks."""
+    import chip_smoke
+
+    swin = dataclasses.replace(SWIN_PRESETS["swin_b"], attention_impl=impl)
+    trainer = MAETrainer(MAEConfig(swin=swin, resolution=64), TrainConfig(), 10, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    batch = {"grids": torch.rand((2, 64, 64, 64, 4), generator=gen, device=dev),
+             "sizes": torch.full((2, 3), 64, device=dev)}
+    state = trainer.init(0)
+    blocks = sum(isinstance(m, UnetResBlock3D) for m in state.model.modules())
+    chip_smoke.reset_launches()
+    _, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = chip_smoke.read_launches()
+    if impl == "plain":
+        assert set(launches.values()) == {0}, launches
+    else:
+        assert (launches["block"], launches["block_bwd"]) == (22, 22), launches
+        chip_smoke.check_res_norm_launches("auto", launches, blocks, 1)
+    assert math.isfinite(float(metrics["loss"]))

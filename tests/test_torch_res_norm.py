@@ -2,8 +2,8 @@
 CPU: the plain versions of norm_act / norm_add_act against the composition
 the block used before them (the conv's bias add, instance_norm_3d, LeakyReLU,
 the residual add), values and gradients in float32; UnetResBlock3D unchanged
-on the CPU; its space-axis path still through _SlabInstanceNorm3d; the
-kernel wrappers' checks and launch geometry. The kernels themselves are
+on the CPU; on a space axis its plain norms with the mesh; the kernel
+wrappers' checks and launch geometry. The kernels themselves are
 compared with these plain versions on the card
 (tests/test_torch_cuda_kernels.py)."""
 
@@ -123,41 +123,56 @@ class _OneRankMesh:
 
 
 def test_slab_path_keeps_the_slab_norm(monkeypatch):
-    """With `spatial` set the block keeps its space-axis code: conv bias
-    adds, _SlabInstanceNorm3d, LeakyReLU, the add; never the fused norms.
-    On a one-rank axis it gives the one-process result."""
-    calls, slab = [], unetr._SlabInstanceNorm3d
+    """With `spatial` set kernels.wanted says no, even under "kernel": the
+    block's norms run the plain composition with the mesh, every instance
+    norm through _InstanceNorm3d with the mesh, never the kernels'
+    Function. On a one-rank axis it gives the one-process result, values
+    and gradients."""
+    calls, norms, inorm = [], [], res_norm._InstanceNorm3d
 
-    class Spy(slab):
+    class Spy(inorm):
         @staticmethod
-        def forward(ctx, x, eps, mesh):
-            calls.append(tuple(x.shape))
-            return slab.forward(ctx, x, eps, mesh)
+        def forward(ctx, x, eps, mesh=None):
+            calls.append((tuple(x.shape), mesh))
+            return inorm.forward(ctx, x, eps, mesh)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("the slab path reached a fused norm")
+        raise AssertionError("the slab path reached the fused norms' kernels")
+
+    def spied(fn):
+        def call(*args, **kwargs):
+            norms.append((kwargs["kernel"], kwargs["mesh"]))
+            return fn(*args, **kwargs)
+        return call
 
     def halo(x, k, mesh):  # zeros beyond the global ends of axis 1
         return F.pad(x, (0, 0, 0, 0, 0, 0, k, k))
 
-    monkeypatch.setattr(unetr, "_SlabInstanceNorm3d", Spy)
-    monkeypatch.setattr(unetr, "norm_act", refuse)
-    monkeypatch.setattr(unetr, "norm_add_act", refuse)
+    monkeypatch.setattr(res_norm, "_InstanceNorm3d", Spy)
+    monkeypatch.setattr(res_norm._ResNormAct, "apply", refuse)
+    monkeypatch.setattr(unetr, "norm_act", spied(res_norm.norm_act))
+    monkeypatch.setattr(unetr, "norm_add_act", spied(res_norm.norm_add_act))
     monkeypatch.setattr(unetr.sp, "halo", halo)
     monkeypatch.setattr(unetr.sp, "all_reduce", lambda t, mesh: t)
-    block = unetr.UnetResBlock3D(4, 16, dtype=torch.float32)
+    block = unetr.UnetResBlock3D(4, 16, dtype=torch.float32, attention_impl="kernel")
     gen = torch.Generator().manual_seed(3)
     with torch.no_grad():
         for p in block.parameters():
             p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
-    x = torch.randn(2, 6, 6, 6, 4, generator=gen)
+    x = torch.randn(2, 6, 6, 6, 4, generator=gen).requires_grad_(True)
+    cot = torch.randn(2, 6, 6, 6, 16, generator=gen)
+    wrt = [x, *block.parameters()]
     want = _old_block_forward(block, x)
     mesh = _OneRankMesh()
     for m in (block, block.conv1, block.conv2, block.conv3):
         m.spatial = mesh
     got = block(x)
-    assert calls == [(2, 6, 6, 6, 16)] * 3
+    assert calls == [((2, 6, 6, 6, 16), mesh)] * 3
+    assert norms == [(False, mesh)] * 2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # the biases before a norm get rounding noise around 0 (they cancel in it)
+    for g, w in zip(_grads(got, cot, wrt), _grads(want, cot, wrt)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 def test_kernel_entry_points_refuse_what_they_cannot_run():
